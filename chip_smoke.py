@@ -8,20 +8,35 @@ prints no ok line:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every CUDA kernel of the port, from the sources in the
                checkout (one nvcc per source, all started together);
-  3. kernels — each kernel against its plain PyTorch version on the card, at
-               the main path's shape and at ragged ones, within the stated
-               tolerance; then CUDA-event timings of kernel and plain;
+  3. kernels — each kernel entry (the stencil's accumulators and the fused
+               regularize) against its plain PyTorch version on the card, at
+               the main path's shape and at ragged ones, var = 0 at invalid
+               pixels, both remove_occlusions values, within the stated
+               tolerance; then CUDA-event timings of kernel and plain, with
+               the inputs L2-warm and rotated over more than 50 MB (cold),
+               and the host microseconds per regularize() call, fused
+               against the unfused path (accumulators + torch epilogue);
+               the checks run at the config's diff_fac (1) and at 2;
   4. VO      — the sequential visual-odometry loop at 640x480 (default
                LSDConfig(), PlaneScene(seed=7), the orbit trajectory of the
                stored JAX reference), gt_depth_init, track_frame for N-1
                frames, finalize, on the card through SlamSystem's defaults;
                the kernel launch counters are zeroed just before and read
                just after. Checks: tracking good, >= 1 keyframe switch,
-               >= N stencil launches, ATE < 0.01, and the trajectory within
+               >= N + switches fused launches, no accumulators launch and
+               no plain-version call, ATE < 0.01, and the trajectory within
                TRAJ_BOUND of the JAX reference frame by frame. A second,
                profiled pass (stage timers synchronised) gives the per-stage
-               breakdown.
+               breakdown, and a third runs under torch.profiler. The fused
+               entry is also timed on the loop's final state.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
+
+    python3 chip_smoke.py --baseline-cu OLD.cu
+
+also builds OLD.cu (an earlier version of csrc/regularize_stencil.cu with
+the same `lsd_regularize_accumulators` entry, e.g. from `git show`) and
+times it against the current kernel in turns (old, new, new, old),
+L2-warm and cold.
 
 Needs CUDA and the port's package beside it: without either it exits 2
 before printing any result.
@@ -29,7 +44,11 @@ before printing any result.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
+import functools
+import itertools
 import json
 import os
 import statistics
@@ -54,6 +73,10 @@ F32_FLOP_PER_S = 67e12
 
 STENCIL_RTOL = STENCIL_ATOL = 1e-6  # tests/test_pallas_stencil.py:36-38
 
+# L2 is 50 MB: the cold timings rotate over more input bytes than this
+COLD_BYTES = 64 << 20
+SHAPES = ((480, 640), (40, 52), (37, 53))
+
 
 def log(*a):
     print(*a, flush=True)
@@ -68,13 +91,37 @@ def card_line() -> str:
 
 
 def random_planes(rng, h, w):
-    """The stencil test planes of tests/test_pallas_stencil.py:11-18."""
+    """The stencil test planes of tests/test_pallas_stencil.py:11-18, with
+    var = 0 at half the invalid pixels as real states hold it
+    (tests/test_torch_regularize.py): the centre tap's ivar is then inf and
+    s_id * ivar NaN, which only the mask keeps out of the sums."""
     idepth = rng.uniform(0.2, 2.0, (h, w)).astype(np.float32)
     var = rng.uniform(0.001, 0.3, (h, w)).astype(np.float32)
     valid = rng.uniform(size=(h, w)) < 0.6
     validity = rng.uniform(0, 50, (h, w)).astype(np.float32)
     idepth = np.where(valid, idepth, 0.0).astype(np.float32)
+    var[~valid & (rng.uniform(size=(h, w)) < 0.5)] = 0.0
     return idepth, var, valid.astype(np.float32), validity
+
+
+def random_state(torch, rng, h, w):
+    """The planes regularize_fused takes, on the card: random_planes plus
+    idepth_smoothed / var_smoothed (-1 where invalid) and a blacklist."""
+    idepth, var, valid, validity = random_planes(rng, h, w)
+    v = valid > 0
+    id_sm = np.where(v, idepth * rng.uniform(0.9, 1.1, (h, w)), -1.0)
+    var_sm = np.where(v, var * rng.uniform(0.9, 1.1, (h, w)), -1.0)
+    bl = rng.integers(-3, 1, (h, w)).astype(np.int32)
+    return [torch.as_tensor(a, device="cuda").contiguous() for a in (
+        idepth, var, v, validity, id_sm.astype(np.float32),
+        var_sm.astype(np.float32), bl)]
+
+
+def max_err_of(a, b, err):
+    both = np.isfinite(a) & np.isfinite(b)
+    if both.any():
+        err = max(err, float(np.abs(a[both] - b[both]).max()))
+    return err
 
 
 def compare_stencil(torch, stencil, planes, reg_dist_var, diff_fac):
@@ -94,10 +141,37 @@ def compare_stencil(torch, stencil, planes, reg_dist_var, diff_fac):
                                      f"{int((a != b).sum())} pixels")
         np.testing.assert_allclose(a, b, rtol=STENCIL_RTOL,
                                    atol=STENCIL_ATOL, err_msg=name)
-        both = np.isfinite(a) & np.isfinite(b)
-        if both.any():
-            err = max(err, float(np.abs(a[both] - b[both]).max()))
+        err = max_err_of(a, b, err)
     return err
+
+
+def compare_fused(torch, stencil, st, reg_dist_var, diff_fac, validity_th,
+                  remove_occlusions):
+    """regularize_fused vs regularize_plain on the card; valid and the
+    blacklist must match exactly. Returns (max abs error, pixels deleted,
+    pixels kept)."""
+    args = (*st, reg_dist_var, diff_fac, validity_th, remove_occlusions)
+    got = stencil.regularize_fused(*args)
+    want = stencil.regularize_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    names = ("valid", "blacklisted", "idepth_smoothed", "var_smoothed")
+    for name, a, b in zip(names, got, want):
+        if a.dtype != b.dtype:
+            raise AssertionError(f"fused {name}: {a.dtype} != {b.dtype}")
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if name in ("valid", "blacklisted"):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"fused {name}: differs at "
+                                     f"{int((a != b).sum())} pixels")
+            continue
+        np.testing.assert_allclose(a, b, rtol=STENCIL_RTOL,
+                                   atol=STENCIL_ATOL, err_msg=name)
+        err = max_err_of(a, b, err)
+    v_in = st[2].cpu().numpy()
+    deleted = int((v_in & ~got[0].cpu().numpy()).sum())
+    kept = int((got[2] != st[4]).sum().item())
+    return err, deleted, kept
 
 
 def time_gpu(torch, fn, per_batch: int, batches: int) -> float:
@@ -119,6 +193,44 @@ def time_gpu(torch, fn, per_batch: int, batches: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / per_batch)
     return statistics.median(times)
+
+
+def time_in_turns(torch, fns, per_batch, batches):
+    """Median device ms per call of each of two functions, timed in turns
+    a, b, b, a (half the batches each time)."""
+    (na, fa), (nb, fb) = fns
+    half = max(batches // 2, 1)
+    out = {na: [], nb: []}
+    for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+        out[name].append(time_gpu(torch, fn, per_batch, half))
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def host_us_per_call(torch, fn, calls=200, repeats=7):
+    """Median host microseconds to enqueue one call (no sync inside)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def launch_baseline(torch, stencil, fn, planes, reg_dist_var, diff_fac):
+    outs = [torch.empty_like(planes[0]) for _ in range(5)]
+    h, w = planes[0].shape
+    dist = stencil.dist_constants(reg_dist_var)
+    rc = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in outs),
+            h, w, dist.ctypes.data, float(np.float32(diff_fac)),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"baseline launch failed: cudaError {rc}")
+    return outs
 
 
 def rotation_angle(qa, qb):
@@ -160,15 +272,22 @@ def run_vo(torch, ref, profile: bool):
 
 def profile_vo(torch, ref):
     """One more VO pass under torch.profiler: device busy share of the loop
-    and the kernels that take the device time. Informational: a profiler
-    that cannot trace the card prints a note instead of failing the run."""
+    and the kernels that take the device time. The profiler is
+    informational: one that cannot trace the card prints a note instead of
+    failing the run. A failure of the VO pass itself propagates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sys_, _, frame_ms, total_s = run_vo(torch, ref, profile=False)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:  # noqa: BLE001 - informational phase
+        log(f"[vo-trace] profiler unavailable: {exc!r}")
+        return
+    _, _, _, total_s = run_vo(torch, ref, profile=False)
+    try:
+        prof.stop()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
     except Exception as exc:  # noqa: BLE001 - informational phase
@@ -189,7 +308,114 @@ def profile_vo(torch, ref):
         log(f"[vo-trace]   {t / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
+def check_kernels(torch, stencil, reg_dist_var, diff_facs, validity_th):
+    """Both entries against their plain versions at every shape and each
+    of `diff_facs`; returns the max abs error of each."""
+    rng = np.random.default_rng(0)
+    err_acc = err_fused = 0.0
+    for (h, w), diff_fac in itertools.product(SHAPES, diff_facs):
+        e = compare_stencil(torch, stencil, random_planes(rng, h, w),
+                            reg_dist_var, diff_fac)
+        err_acc = max(err_acc, e)
+        log(f"[kernel] regularize_accumulators {h}x{w} diff_fac={diff_fac}: "
+            f"ok, max abs err {e:g}")
+        st = random_state(torch, rng, h, w)
+        for occ in (False, True):
+            e, deleted, kept = compare_fused(torch, stencil, st, reg_dist_var,
+                                             diff_fac, validity_th, occ)
+            err_fused = max(err_fused, e)
+            log(f"[kernel] regularize_fused {h}x{w} diff_fac={diff_fac} "
+                f"remove_occlusions={occ}: ok, max abs err {e:g} ({deleted} "
+                f"deleted, {kept} kept)")
+    return err_acc, err_fused
+
+
+def time_kernels(torch, stencil, reg_dist_var, diff_fac, validity_th,
+                 baseline):
+    """CUDA-event ms per call at 480x640 of both entries and their plain
+    versions, L2-warm and cold, the host us per regularize() call, fused
+    and unfused, and `baseline` (another build of the accumulators entry,
+    or None) in turns with the current one."""
+    h, w = 480, 640
+    rng = np.random.default_rng(1)
+    acc_sets = [[torch.as_tensor(p, device="cuda")
+                 for p in random_planes(rng, h, w)]
+                for _ in range(-(-COLD_BYTES // (16 * h * w)))]
+    fused_sets = [random_state(torch, rng, h, w)
+                  for _ in range(-(-COLD_BYTES // (25 * h * w)))]
+    planes, st = acc_sets[0], fused_sets[0]
+    # one set per call, in turn: with more bytes in all than L2 holds, each
+    # call finds its inputs in device memory (cold)
+    next_acc = functools.partial(next, itertools.cycle(acc_sets))
+    next_fused = functools.partial(next, itertools.cycle(fused_sets))
+
+    def acc(p):
+        return stencil.regularize_accumulators(*p, reg_dist_var, diff_fac)
+
+    def fused(x):
+        return stencil.regularize_fused(*x, reg_dist_var, diff_fac,
+                                        validity_th, False)
+
+    def unfused(x):
+        """regularize() unfused: valid to f32, the accumulators kernel, the
+        torch epilogue."""
+        sums = stencil.regularize_accumulators(
+            x[0], x[1], x[2].to(torch.float32), x[3], reg_dist_var, diff_fac)
+        return stencil.regularize_epilogue(*sums, x[2], x[4], x[5], x[6],
+                                           validity_th, False)
+
+    t = {}
+    t["acc_warm"] = time_gpu(torch, lambda: acc(planes), 50, 60)
+    t["acc_cold"] = time_gpu(torch, lambda: acc(next_acc()), 50, 60)
+    # no pixel valid: no reciprocals staged and no tap adds, the same grid
+    none_valid = [*planes[:2], torch.zeros_like(planes[2]), planes[3]]
+    t["acc_warm_none_valid"] = time_gpu(torch, lambda: acc(none_valid), 50,
+                                        60)
+    t["fused_warm"] = time_gpu(torch, lambda: fused(st), 50, 60)
+    t["fused_cold"] = time_gpu(torch, lambda: fused(next_fused()), 50, 60)
+    t["acc_plain"] = time_gpu(
+        torch, lambda: stencil.regularize_accumulators_plain(
+            *planes, reg_dist_var, diff_fac), 5, 30)
+    t["fused_plain"] = time_gpu(
+        torch, lambda: stencil.regularize_plain(
+            *st, reg_dist_var, diff_fac, validity_th, False), 5, 30)
+    t["unfused_warm"] = time_gpu(torch, lambda: unfused(st), 20, 30)
+    t["host_us_fused"] = host_us_per_call(torch, lambda: fused(st))
+    t["host_us_unfused"] = host_us_per_call(torch, lambda: unfused(st))
+    for k, v in t.items():
+        log(f"[kernel] 480x640 {k}: {v:.5f}"
+            + (" us" if k.startswith("host") else " ms"))
+    if baseline is not None:
+        old = {}
+        for tag, pick in (("warm", lambda: planes), ("cold", next_acc)):
+            res = time_in_turns(torch, (
+                ("old", lambda: launch_baseline(torch, stencil, baseline,
+                                                pick(), reg_dist_var,
+                                                diff_fac)),
+                ("new", lambda: acc(pick()))), 50, 60)
+            old[f"old_{tag}"], old[f"new_{tag}"] = res["old"], res["new"]
+        got = launch_baseline(torch, stencil, baseline, planes, reg_dist_var,
+                              diff_fac)
+        old["bit_identical"] = all(torch.equal(a, b)
+                                   for a, b in zip(got, acc(planes)))
+        log(f"[kernel] baseline vs current, in turns old,new,new,old: "
+            f"{json.dumps(old)}")
+        t["baseline"] = old
+    return t
+
+
+def bound(bytes_per_px, flops_per_px, h=480, w=640):
+    t_bytes = bytes_per_px * h * w / HBM_BYTES_PER_S * 1e3
+    t_ops = flops_per_px * h * w / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline-cu",
+                    help="an earlier stencil source to time against")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -213,43 +439,56 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    secs = build.build(verbose=True)
+    extra = {}
+    if args.baseline_cu:
+        extra["baseline"] = os.path.abspath(args.baseline_cu)
+    secs = build.build(verbose=True, sources=extra)
     log(f"[build] {json.dumps(secs)} total {time.perf_counter() - t0:.2f} s")
+    baseline = None
+    if extra:
+        lib = build.library_path("baseline", extra["baseline"])
+        baseline = stencil.bind(ctypes.CDLL(str(lib)),
+                                "lsd_regularize_accumulators")
 
-    # ---- 3. kernel check ----
+    # ---- 3. kernel check and timings ----
     from lsd_slam_tpu_torch.config import LSDConfig
     dcfg = LSDConfig().depth
     reg_dist_var = float(dcfg.reg_dist_var_base)
     diff_fac = float(dcfg.diff_fac_smoothing)
-    rng = np.random.default_rng(0)
-    max_err = 0.0
-    for (h, w) in ((480, 640), (40, 52), (37, 53)):
-        e = compare_stencil(torch, stencil, random_planes(rng, h, w),
-                            reg_dist_var, diff_fac)
-        max_err = max(max_err, e)
-        log(f"[kernel] regularize_accumulators {h}x{w}: ok, max abs err {e:g}")
-    planes = [torch.as_tensor(p, device="cuda")
-              for p in random_planes(np.random.default_rng(1), 480, 640)]
-    kernel_ms = time_gpu(torch, lambda: stencil.regularize_accumulators(
-        *planes, reg_dist_var, diff_fac), per_batch=50, batches=60)
-    plain_ms = time_gpu(torch, lambda: stencil.regularize_accumulators_plain(
-        *planes, reg_dist_var, diff_fac), per_batch=5, batches=60)
-    h, w = 480, 640
-    bytes_moved = 9 * h * w * 4
-    flops = 25 * 12 * h * w
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log(f"[kernel] 480x640 kernel {kernel_ms:.5f} ms, plain {plain_ms:.5f} ms,"
-        f" bound {bound_ms:.5f} ms")
+    # raised from val_sum_min_for_keep so that the random states also
+    # delete hypotheses (tests/test_torch_regularize.py does the same)
+    check_th = 10.0 * dcfg.val_sum_min_for_keep
+    err_acc, err_fused = check_kernels(torch, stencil, reg_dist_var,
+                                       (diff_fac, 2.0), check_th)
+    t = time_kernels(torch, stencil, reg_dist_var, diff_fac,
+                     float(dcfg.val_sum_min_for_keep), baseline)
+    acc_bound, acc_by = bound(36, 25 * 12)
+    fused_bound, fused_by = bound(38, 25 * 12 + 10)
+    log(f"[kernel] 480x640 bounds: accumulators {acc_bound:.5f} ms "
+        f"({acc_by}), fused {fused_bound:.5f} ms ({fused_by})")
 
     # ---- 4. VO at full width ----
     with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
                            "vo_orbit_640x480.json")) as f:
         ref = json.load(f)
-    stencil.LAUNCHES = 0
-    sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
-    launches = stencil.LAUNCHES
+    plain_calls = [0]
+    plains = {name: getattr(stencil, name) for name in (
+        "regularize_plain", "regularize_accumulators_plain")}
+
+    def counted(fn):
+        def call(*a, **k):
+            plain_calls[0] += 1
+            return fn(*a, **k)
+        return call
+    for name, fn in plains.items():
+        setattr(stencil, name, counted(fn))
+    stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+    try:
+        sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
+    finally:
+        for name, fn in plains.items():
+            setattr(stencil, name, fn)
+    launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
     st = sys_.stats.snapshot()
     n = ref["n_frames"]
     traj = sys_.trajectory_array()
@@ -278,21 +517,42 @@ def main() -> int:
         f"{st.get('lm_syncs', 0):.0f}, exports "
         f"{st.get('export_syncs', 0):.0f}, switch rescales "
         f"{st.get('switch_syncs', 0):.0f})")
-    log(f"[vo] stencil launches {launches} over {n - 1} tracked frames")
+    log(f"[vo] regularize_fused launches {fused_launches}, "
+        f"regularize_accumulators launches {launches}, plain-version calls "
+        f"{plain_calls[0]}, over {n - 1} tracked frames")
     log(f"[vo] stage ms (dispatch windows): {sys_.timers.summary()}")
     assert sys_.tracking_is_good, "tracking lost"
     assert created >= 1, "no keyframe switch"
-    assert launches >= n, f"stencil launched {launches} < {n} frames"
+    # one per tracked frame, two per switch frame instead of one, one at
+    # finalize
+    assert fused_launches >= n + created, (
+        f"regularize_fused launched {fused_launches} < {n + created}")
+    assert launches == 0 and plain_calls[0] == 0, (launches, plain_calls)
     assert ate < 0.01, f"ATE {ate}"
     assert dc.max() <= TRAJ_BOUND and da.max() <= TRAJ_BOUND, (
         f"trajectory off the JAX reference: centre {dc.max()}, "
         f"rotation {da.max()}")
 
-    # the stencil once more on the main path's own final state
+    # both entries once more on the main path's own final state
     s = sys_.map.state
-    max_err = max(max_err, compare_stencil(
+    vo_state = [s.idepth, s.var, s.valid, s.validity, s.idepth_smoothed,
+                s.var_smoothed, s.blacklisted]
+    err_acc = max(err_acc, compare_stencil(
         torch, stencil, [s.idepth, s.var, s.valid.float(), s.validity],
         reg_dist_var, diff_fac))
+    for occ in (False, True):
+        e, deleted, kept = compare_fused(
+            torch, stencil, vo_state, reg_dist_var, diff_fac,
+            float(dcfg.val_sum_min_for_keep), occ)
+        err_fused = max(err_fused, e)
+        log(f"[kernel] regularize_fused on the final VO state, "
+            f"remove_occlusions={occ}: ok, max abs err {e:g} ({deleted} "
+            f"deleted, {kept} kept)")
+    vo_state_ms = time_gpu(torch, lambda: stencil.regularize_fused(
+        *vo_state, reg_dist_var, diff_fac, float(dcfg.val_sum_min_for_keep),
+        False), 50, 60)
+    log(f"[kernel] regularize_fused on the final VO state "
+        f"({s.valid.float().mean().item():.4f} valid): {vo_state_ms:.5f} ms")
 
     # profiled pass: stage timers synchronise, so each stage is device time
     psys, _, pframe_ms, _ = run_vo(torch, ref, profile=True)
@@ -300,22 +560,32 @@ def main() -> int:
         f"{psys.timers.summary()}")
     profile_vo(torch, ref)
 
-    log(json.dumps({"kernels": [{
-        "name": "regularize_accumulators",
-        "route": "cuda",
-        "source": "lsd_slam_tpu_torch/csrc/regularize_stencil.cu",
-        "replaces": "lsd_slam_tpu/ops/pallas_stencil.py:94",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes the five "
-                        "accumulators",
-    }]}))
+    common = dict(route="cuda",
+                  source="lsd_slam_tpu_torch/csrc/regularize_stencil.cu",
+                  replaces="lsd_slam_tpu/ops/pallas_stencil.py:94",
+                  library_ms=None)
+    log(json.dumps({"kernels": [
+        dict(name="regularize_fused", **common,
+             launches=fused_launches, max_abs_err=err_fused,
+             ms=t["fused_warm"], kernel_ms=t["fused_warm"],
+             cold_ms=t["fused_cold"], plain_ms=t["fused_plain"],
+             bound_ms=fused_bound, bound_by=fused_by,
+             host_us_per_call=t["host_us_fused"],
+             unfused_host_us_per_call=t["host_us_unfused"],
+             unfused_ms=t["unfused_warm"], vo_state_ms=vo_state_ms,
+             library_note="no single PyTorch call computes regularize()",
+             also_replaces="lsd_slam_tpu/depth/regularize.py:99-118"),
+        dict(name="regularize_accumulators", **common,
+             launches=launches, max_abs_err=err_acc,
+             ms=t["acc_warm"], kernel_ms=t["acc_warm"],
+             cold_ms=t["acc_cold"], plain_ms=t["acc_plain"],
+             bound_ms=acc_bound, bound_by=acc_by,
+             none_valid_ms=t["acc_warm_none_valid"],
+             baseline=t.get("baseline"),
+             library_note="no single PyTorch call computes the five "
+                          "accumulators; off the main path since "
+                          "regularize() calls the fused entry"),
+    ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """Spatial regularization, hole-filling and propagation sweeps (torch).
 
 Port of lsd_slam_tpu/depth/regularize.py (DepthMap.cpp:475-880):
-  * regularize: 5x5 inverse-variance smoothing with a distance prior — the
-    25-tap accumulators come from `ops.regularize_stencil` (the CUDA kernel
-    on the card, the plain lattice on the CPU), then the deletion/keep
-    epilogue;
+  * regularize: 5x5 inverse-variance smoothing with a distance prior and
+    the deletion/keep epilogue, in one call of `ops.regularize_stencil`'s
+    `regularize_fused` (the CUDA kernel on the card, the plain lattice and
+    epilogue on the CPU);
   * fill_holes: validity integral image via two cumsums + 5x5 neighbour
     fusion (DepthMap.cpp:656-754);
   * propagate: reprojection into the new keyframe as a two-pass scatter —
@@ -27,7 +27,7 @@ from lsd_slam_tpu_torch import lie
 from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import DepthFilterConfig, MappingConfig
 from lsd_slam_tpu_torch.ops.interp import bilinear, trunc_int
-from lsd_slam_tpu_torch.ops.regularize_stencil import regularize_accumulators
+from lsd_slam_tpu_torch.ops.regularize_stencil import regularize_fused
 from lsd_slam_tpu_torch.depth.state import DepthMapState
 
 _DIV_EPS = 1e-10
@@ -60,45 +60,19 @@ def _cumsum_last(x, base: int = 16):
     return (inner + excl[..., None]).reshape(xp.shape)[..., :n]
 
 
-def _interior(h, w, border, device):
-    m = torch.zeros((h, w), dtype=torch.bool, device=device)
-    m[border:h - border, border:w - border] = True
-    return m
-
-
 def regularize(state: DepthMapState, remove_occlusions: bool,
                validity_th: float, dcfg: DepthFilterConfig,
                smoothing_factor: float = 1.0) -> DepthMapState:
     """5x5 smoothing into idepth_smoothed / var_smoothed, validity-sum
-    deletion, optional occlusion removal."""
-    h, w = state.idepth.shape
+    deletion, optional occlusion removal: one `regularize_fused` call."""
     reg_dist_var = dcfg.reg_dist_var_base * smoothing_factor * smoothing_factor
-    dest_valid = state.valid
-
-    (sum_id, sum_ivar, val_sum, n_occluding,
-     n_not_occluding) = regularize_accumulators(
-        state.idepth, state.var, dest_valid.to(torch.float32),
-        state.validity, float(reg_dist_var), float(dcfg.diff_fac_smoothing))
-
-    touched = dest_valid & _interior(h, w, 2, dest_valid.device)
-    delete_validity = touched & (val_sum < validity_th)
-    if remove_occlusions:
-        delete_occ = touched & ~delete_validity & (n_occluding
-                                                   > n_not_occluding)
-    else:
-        delete_occ = torch.zeros_like(delete_validity)
-
-    keep = touched & ~delete_validity & ~delete_occ
-    safe_ivar = torch.clamp_min(sum_ivar, _DIV_EPS)
-    smoothed = torch.where(keep, sum_id / safe_ivar, state.idepth_smoothed)
-    var_smoothed = torch.where(keep, 1.0 / safe_ivar, state.var_smoothed)
-
-    return state.replace(
-        valid=state.valid & ~delete_validity & ~delete_occ,
-        blacklisted=state.blacklisted - delete_validity.to(torch.int32),
-        idepth_smoothed=smoothed,
-        var_smoothed=var_smoothed,
-    )
+    valid, blacklisted, smoothed, var_smoothed = regularize_fused(
+        state.idepth, state.var, state.valid, state.validity,
+        state.idepth_smoothed, state.var_smoothed, state.blacklisted,
+        float(reg_dist_var), float(dcfg.diff_fac_smoothing),
+        float(validity_th), remove_occlusions)
+    return state.replace(valid=valid, blacklisted=blacklisted,
+                         idepth_smoothed=smoothed, var_smoothed=var_smoothed)
 
 
 def fill_holes(state: DepthMapState, kf_max_grad, dcfg: DepthFilterConfig,

@@ -3,7 +3,8 @@
 The depth-map state is this system's parameters: to feed the port the
 exact state the JAX engine holds, a caller flattens each JAX value into a
 dict keyed by its field names (tuples of levels become lists, missing
-levels None) and builds the port's dataclasses here. Nothing in this
+levels None) and builds the port's dataclasses here, on the CUDA device
+unless the caller names another (`resolve_device`). Nothing in this
 module knows the JAX package; it only reads dicts.
 """
 
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lsd_slam_tpu_torch import resolve_device
 from lsd_slam_tpu_torch.config import (
     LSDConfig, TrackerConfig, DepthFilterConfig, KeyframeConfig,
     MappingConfig, SystemConfig)
@@ -29,7 +31,7 @@ _STATE_DTYPES = dict(valid=torch.bool, blacklisted=torch.int32)
 
 
 def _t(a, device, dtype=None):
-    t = torch.as_tensor(np.asarray(a), device=device)
+    t = torch.as_tensor(np.asarray(a), device=resolve_device(device))
     return t if dtype is None else t.to(dtype)
 
 
@@ -51,14 +53,14 @@ def config_from_dict(d: dict) -> LSDConfig:
     return LSDConfig(**kw)
 
 
-def depth_state_from_dict(d: dict, device="cpu") -> DepthMapState:
+def depth_state_from_dict(d: dict, device=None) -> DepthMapState:
     kw = {f.name: _t(d[f.name], device,
                      _STATE_DTYPES.get(f.name, torch.float32))
           for f in dataclasses.fields(DepthMapState)}
     return DepthMapState(**kw)
 
 
-def frame_pyramid_from_dict(d: dict, device="cpu") -> FramePyramid:
+def frame_pyramid_from_dict(d: dict, device=None) -> FramePyramid:
     f32 = torch.float32
     return FramePyramid(
         images=_levels(d["images"], device, f32),
@@ -69,12 +71,12 @@ def frame_pyramid_from_dict(d: dict, device="cpu") -> FramePyramid:
         num_mappable=_t(d["num_mappable"], device, f32))
 
 
-def depth_pyramid_from_dict(d: dict, device="cpu") -> DepthPyramid:
+def depth_pyramid_from_dict(d: dict, device=None) -> DepthPyramid:
     return DepthPyramid(idepth=_levels(d["idepth"], device, torch.float32),
                         ivar=_levels(d["ivar"], device, torch.float32))
 
 
-def point_set_from_dict(d: dict, device="cpu") -> PointSet:
+def point_set_from_dict(d: dict, device=None) -> PointSet:
     f32 = torch.float32
     return PointSet(
         idx=_t(d["idx"], device, torch.int64),
@@ -85,7 +87,7 @@ def point_set_from_dict(d: dict, device="cpu") -> PointSet:
         n_valid=_t(d["n_valid"], device, f32))
 
 
-def tracking_ref_from_dict(d: dict, device="cpu") -> TrackingRef:
+def tracking_ref_from_dict(d: dict, device=None) -> TrackingRef:
     pts = tuple(None if p is None else point_set_from_dict(p, device)
                 for p in d["pts"])
     return TrackingRef(pts=pts, sim3_quad=(None,) * len(pts))

@@ -49,28 +49,34 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+def library_path(name: str, source: Optional[Path] = None) -> Path:
+    """The build of kernel `name`, from `source` (default: its file under
+    csrc/)."""
+    src = Path(source or CSRC / SOURCES[name]).read_bytes()
     key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build(names: Optional[Iterable[str]] = None,
-          verbose: bool = False) -> Dict[str, float]:
+def build(names: Optional[Iterable[str]] = None, verbose: bool = False,
+          sources: Optional[Dict[str, Path]] = None) -> Dict[str, float]:
     """Compile the named kernels (default: all) that are not built yet, one
-    nvcc process per source, all started together. Returns the wall
-    seconds per kernel built; raises with nvcc's output on failure."""
-    names = list(SOURCES if names is None else names)
+    nvcc process per source, all started together; `sources` adds builds
+    of other files by name (e.g. an earlier version of a kernel to time
+    against). Returns the wall seconds per kernel built; raises with nvcc's
+    output on failure."""
+    todo = {n: CSRC / SOURCES[n] for n in (SOURCES if names is None
+                                           else names)}
+    todo.update(sources or {})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
+    for name, src in todo.items():
+        out = library_path(name, src)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -1,40 +1,56 @@
-"""The 5x5 depth-regularization stencil: CUDA kernel wrapper + plain version.
+"""The 5x5 depth-regularization stencil: CUDA kernel wrappers + plain versions.
 
 Replaces the Pallas TPU kernel `regularize_accumulators` of
-lsd_slam_tpu/ops/pallas_stencil.py (and its gate `pallas_regularize_enabled`).
+lsd_slam_tpu/ops/pallas_stencil.py (and its gate `pallas_regularize_enabled`)
+and the elementwise epilogue of lsd_slam_tpu/depth/regularize.py:99-118.
 The kernel is `csrc/regularize_stencil.cu` (see its header for the bound
-and the design); `regularize_accumulators_plain` is the port of the XLA
-lattice `_regularize_accumulators_xla` (lsd_slam_tpu/depth/regularize.py:41)
-and computes the same five accumulators. A term `x * use` of the JAX
-lattice is `select(use, x, 0)` after XLA's simplifier (a masked-out tap
-whose ivar is inf adds 0, not NaN); both versions here add the selected
-term.
+and the design); it has two entries:
 
-`regularize_accumulators` takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises — it never falls
-back. `LAUNCHES` counts kernel launches.
+  * `regularize_accumulators` — the five accumulators; its plain version
+    `regularize_accumulators_plain` is the port of the XLA lattice
+    `_regularize_accumulators_xla` (lsd_slam_tpu/depth/regularize.py:41);
+  * `regularize_fused` — the whole regularize(): the same sweep with the
+    deletion / keep epilogue, the accumulators never leaving registers; its
+    plain version `regularize_plain` is the plain accumulators followed by
+    `regularize_epilogue`.
+
+A term `x * use` of the JAX lattice is `select(use, x, 0)` after XLA's
+simplifier (a masked-out tap whose ivar is inf adds 0, not NaN); every
+version here adds the selected term.
+
+The wrappers take the plain version only for tensors on the CPU; for CUDA
+tensors they launch the kernel or raise — they never fall back.
+`LAUNCHES` and `FUSED_LAUNCHES` count kernel launches of each entry.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-# number of times the CUDA kernel was launched (reset it to count a run)
+# number of times each CUDA entry was launched (reset them to count a run)
 LAUNCHES = 0
+FUSED_LAUNCHES = 0
+
+_DIV_EPS = 1e-10
 
 # dx^2+dy^2 of the 25 taps, in the kernel's constant-slot order
 _DIST_SQ = (0, 1, 2, 4, 5, 8)
 
 
+@functools.lru_cache(maxsize=16)
 def dist_constants(reg_dist_var: float) -> np.ndarray:
     """float(dx^2+dy^2) * reg_dist_var in Python double, rounded to f32 —
-    the rounding the JAX code applies to the same weak-typed constant."""
-    return np.asarray([float(d2) * float(reg_dist_var) for d2 in _DIST_SQ],
-                      np.float32)
+    the rounding the JAX code applies to the same weak-typed constant.
+    Cached per value (read-only), since every launch passes it."""
+    d = np.asarray([float(d2) * float(reg_dist_var) for d2 in _DIST_SQ],
+                   np.float32)
+    d.setflags(write=False)
+    return d
 
 
 def _taps(a: torch.Tensor, fill: float):
@@ -76,11 +92,54 @@ def regularize_accumulators_plain(idepth, var, valid_f, validity,
     return sum_id, sum_ivar, val_sum, n_occ, n_not
 
 
-def _check(name, t, ref):
+def _interior(h, w, border, device):
+    m = torch.zeros((h, w), dtype=torch.bool, device=device)
+    m[border:h - border, border:w - border] = True
+    return m
+
+
+def regularize_epilogue(sum_id, sum_ivar, val_sum, n_occluding,
+                        n_not_occluding, valid, idepth_smoothed,
+                        var_smoothed, blacklisted, validity_th: float,
+                        remove_occlusions: bool):
+    """Deletion / keep epilogue of regularize() (regularize.py:99-118) on
+    the five accumulators. Returns (valid, blacklisted, idepth_smoothed,
+    var_smoothed)."""
+    h, w = valid.shape
+    touched = valid & _interior(h, w, 2, valid.device)
+    delete_validity = touched & (val_sum < validity_th)
+    if remove_occlusions:
+        delete_occ = touched & ~delete_validity & (n_occluding
+                                                   > n_not_occluding)
+    else:
+        delete_occ = torch.zeros_like(delete_validity)
+
+    keep = touched & ~delete_validity & ~delete_occ
+    safe_ivar = torch.clamp_min(sum_ivar, _DIV_EPS)
+    smoothed = torch.where(keep, sum_id / safe_ivar, idepth_smoothed)
+    var_sm = torch.where(keep, 1.0 / safe_ivar, var_smoothed)
+    return (valid & ~delete_validity & ~delete_occ,
+            blacklisted - delete_validity.to(torch.int32), smoothed, var_sm)
+
+
+def regularize_plain(idepth, var, valid, validity, idepth_smoothed,
+                     var_smoothed, blacklisted, reg_dist_var: float,
+                     diff_fac: float, validity_th: float,
+                     remove_occlusions: bool):
+    """The whole regularize() as plain torch: the plain accumulators, then
+    the epilogue. Returns (valid, blacklisted, idepth_smoothed,
+    var_smoothed)."""
+    acc = regularize_accumulators_plain(idepth, var, valid.to(torch.float32),
+                                        validity, reg_dist_var, diff_fac)
+    return regularize_epilogue(*acc, valid, idepth_smoothed, var_smoothed,
+                               blacklisted, validity_th, remove_occlusions)
+
+
+def _check(name, t, ref, dtype=torch.float32):
     if t.device != ref.device:
         raise ValueError(f"{name} on {t.device}, expected {ref.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != 2 or t.shape != ref.shape:
         raise ValueError(f"{name} must be 2-D {tuple(ref.shape)}, got "
                          f"{tuple(t.shape)}")
@@ -88,16 +147,46 @@ def _check(name, t, ref):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _lib():
-    from lsd_slam_tpu_torch.ops.build import load
-    lib = load("regularize_stencil")
-    fn = lib.lsd_regularize_accumulators
+_ARGTYPES = {
+    "lsd_regularize_accumulators": (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_float, ctypes.c_void_p]),
+    "lsd_regularize_fused": (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_int, ctypes.c_void_p]),
+}
+
+
+def bind(lib, symbol: str):
+    """One C entry of a built stencil library, with its ctypes signature."""
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                          ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[symbol]
     return fn
+
+
+def _launch(name: str, symbol: str, device, *args):
+    """Call one C entry on `device`'s current stream (the device made
+    current first if it is not); raises if the launch failed."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(name, symbol, device, *args)
+    from lsd_slam_tpu_torch.ops.build import load
+    fn = bind(load("regularize_stencil"), symbol)
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _cuda_or_plain(name: str, t) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
 
 
 def regularize_accumulators(idepth, var, valid_f, validity,
@@ -108,26 +197,58 @@ def regularize_accumulators(idepth, var, valid_f, validity,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     global LAUNCHES
-    if idepth.device.type == "cpu":
+    if not _cuda_or_plain("regularize_accumulators", idepth):
         return regularize_accumulators_plain(idepth, var, valid_f, validity,
                                              reg_dist_var, diff_fac)
-    if idepth.device.type != "cuda":
-        raise ValueError(f"regularize_accumulators: unsupported device "
-                         f"{idepth.device}")
     for name, t in (("idepth", idepth), ("var", var), ("valid_f", valid_f),
                     ("validity", validity)):
         _check(name, t, idepth)
     h, w = idepth.shape
-    fn = _lib()
     outs = [torch.empty_like(idepth) for _ in range(5)]
-    dist = dist_constants(reg_dist_var)
-    with torch.cuda.device(idepth.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(idepth.data_ptr(), var.data_ptr(), valid_f.data_ptr(),
-                validity.data_ptr(), *(o.data_ptr() for o in outs),
-                h, w, dist.ctypes.data, float(np.float32(diff_fac)), stream)
+    _launch("regularize_accumulators", "lsd_regularize_accumulators",
+            idepth.device, idepth.data_ptr(), var.data_ptr(),
+            valid_f.data_ptr(), validity.data_ptr(),
+            *(o.data_ptr() for o in outs), h, w,
+            dist_constants(reg_dist_var).ctypes.data,
+            float(np.float32(diff_fac)))
     LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"regularize_accumulators kernel launch failed: "
-                           f"cudaError {rc}")
     return tuple(outs)
+
+
+def regularize_fused(idepth, var, valid, validity, idepth_smoothed,
+                     var_smoothed, blacklisted, reg_dist_var: float,
+                     diff_fac: float, validity_th: float,
+                     remove_occlusions: bool):
+    """The whole regularize() in one sweep: (H, W) f32 idepth, var,
+    validity, idepth_smoothed, var_smoothed, bool valid and int32
+    blacklisted in; new (valid, blacklisted, idepth_smoothed, var_smoothed)
+    tensors out (the inputs are left as they are).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    global FUSED_LAUNCHES
+    if not _cuda_or_plain("regularize_fused", idepth):
+        return regularize_plain(idepth, var, valid, validity,
+                                idepth_smoothed, var_smoothed, blacklisted,
+                                reg_dist_var, diff_fac, validity_th,
+                                remove_occlusions)
+    for name, t in (("idepth", idepth), ("var", var), ("validity", validity),
+                    ("idepth_smoothed", idepth_smoothed),
+                    ("var_smoothed", var_smoothed)):
+        _check(name, t, idepth)
+    _check("valid", valid, idepth, torch.bool)
+    _check("blacklisted", blacklisted, idepth, torch.int32)
+    h, w = idepth.shape
+    o_valid = torch.empty_like(valid)
+    o_bl = torch.empty_like(blacklisted)
+    o_id = torch.empty_like(idepth)
+    o_var = torch.empty_like(idepth)
+    _launch("regularize_fused", "lsd_regularize_fused", idepth.device,
+            idepth.data_ptr(), var.data_ptr(), valid.data_ptr(),
+            validity.data_ptr(), idepth_smoothed.data_ptr(),
+            var_smoothed.data_ptr(), blacklisted.data_ptr(),
+            o_valid.data_ptr(), o_bl.data_ptr(), o_id.data_ptr(),
+            o_var.data_ptr(), h, w, dist_constants(reg_dist_var).ctypes.data,
+            float(np.float32(diff_fac)), float(np.float32(validity_th)),
+            int(bool(remove_occlusions)))
+    FUSED_LAUNCHES += 1
+    return o_valid, o_bl, o_id, o_var

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lsd_slam_tpu_torch import lie
+from lsd_slam_tpu_torch import lie, resolve_device
 from lsd_slam_tpu_torch.camera import Camera
 
 
@@ -61,10 +61,11 @@ class PlaneScene:
                                      dim=-1)
 
 
-def render(scene: PlaneScene, camera: Camera, pose_w2c, device="cpu"):
+def render(scene: PlaneScene, camera: Camera, pose_w2c, device=None):
     """Render (image (H,W) f32 in [0,255], depth (H,W) f32 camera z) at a
-    world->camera pose (SE3 (7,)) on `device`."""
-    dev = torch.device(device)
+    world->camera pose (SE3 (7,)) on `device` (the CUDA device unless the
+    caller names another)."""
+    dev = resolve_device(device)
     h, w = camera.height, camera.width
     pose = torch.as_tensor(np.asarray(pose_w2c, np.float32), device=dev)
     c2w = lie.se3_inverse(pose)

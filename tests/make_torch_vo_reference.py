@@ -93,7 +93,7 @@ def check_port(ref: dict, n_frames: int = 0):
     sys_ = SlamSystem(cam, LSDConfig(), device="cpu")
     t0 = time.time()
     for i in range(n):
-        img, dep = synth.render(scene, cam, poses[i])
+        img, dep = synth.render(scene, cam, poses[i], device="cpu")
         if i == 0:
             sys_.gt_depth_init(img, dep, 0, 0.0)
         else:

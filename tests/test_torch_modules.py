@@ -174,7 +174,8 @@ def test_synth_render_matches(rendered):
         poses, jsynth.orbit_trajectory(6, radius=0.06, fwd=0.01), atol=1e-6)
     ti, td = tsynth.render(tsynth.PlaneScene(seed=5),
                            tsynth.default_camera(160, 128),
-                           np.array([1, 0, 0, 0, 0, 0, 0], np.float32))
+                           np.array([1, 0, 0, 0, 0, 0, 0], np.float32),
+                           device="cpu")
     np.testing.assert_allclose(np_(ti), img, rtol=0, atol=2e-3)
     np.testing.assert_allclose(np_(td), dep, rtol=1e-5, atol=1e-5)
 
@@ -189,7 +190,7 @@ def test_frame_pyramid_matches(rendered):
                                        err_msg=f"{key}[{lvl}]")
     assert float(tp["num_mappable"]) == float(jp["num_mappable"])
     # interop.py carries the JAX pyramid over unchanged
-    cp = np_(frame_pyramid_from_dict(jp))
+    cp = np_(frame_pyramid_from_dict(jp, device="cpu"))
     np.testing.assert_array_equal(cp["quad"][2], jp["quad"][2])
 
 
@@ -207,7 +208,7 @@ def test_depth_pyramid_matches(rendered):
     for key in ("idepth", "ivar"):
         for a, b in zip(jd[key], td[key]):
             np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7)
-    cd = np_(depth_pyramid_from_dict(jd))
+    cd = np_(depth_pyramid_from_dict(jd, device="cpu"))
     np.testing.assert_array_equal(cd["ivar"][3], jd["ivar"][3])
 
 

@@ -79,9 +79,9 @@ def observed():
 
     tcam = Camera(**dataclasses.asdict(cam))
     tcfg = LSDConfig(width=W, height=H)
-    tkf = frame_pyramid_from_dict(to_dict(kf.pyr))
+    tkf = frame_pyramid_from_dict(to_dict(kf.pyr), device="cpu")
     inputs = dict(
-        state=depth_state_from_dict(to_dict(state)),
+        state=depth_state_from_dict(to_dict(state), device="cpu"),
         ref_img=torch.from_numpy(np.asarray(pyr.images[0])),
         ref_to_kf=torch.from_numpy(np.asarray(res.frame_to_ref)),
         good_mask=torch.from_numpy(np.asarray(res.good_mask)),

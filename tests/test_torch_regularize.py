@@ -55,9 +55,11 @@ def _assert_accumulators(ref, out):
         np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6, err_msg=name)
 
 
-@pytest.mark.parametrize("h,w,reg_dist_var", [(48, 64, 0.075),
-                                              (40, 52, 0.01)])
-def test_plain_stencil_matches_xla_and_pallas(h, w, reg_dist_var):
+@pytest.mark.parametrize("h,w,reg_dist_var,diff_fac", [
+    pytest.param(48, 64, 0.075, 1.0, id="48-64-0.075"),
+    pytest.param(40, 52, 0.01, 1.0, id="40-52-0.01"),
+    pytest.param(40, 52, 0.005625, 2.0, id="40-52-0.005625-diff_fac2")])
+def test_plain_stencil_matches_xla_and_pallas(h, w, reg_dist_var, diff_fac):
     rng = np.random.default_rng(h)
     idepth, var, valid, validity = _random_planes(rng, h, w)
     # real states carry var 0 at invalid pixels: the centre tap's ivar is
@@ -66,13 +68,14 @@ def test_plain_stencil_matches_xla_and_pallas(h, w, reg_dist_var):
     xla = jax.jit(jreg._regularize_accumulators_xla,
                   static_argnums=(4, 5))(
         jnp.asarray(idepth), jnp.asarray(var), jnp.asarray(valid),
-        jnp.asarray(validity), reg_dist_var, 1.0)
+        jnp.asarray(validity), reg_dist_var, diff_fac)
     pal = pallas(jnp.asarray(idepth), jnp.asarray(var),
                  jnp.asarray(valid).astype(jnp.float32),
-                 jnp.asarray(validity), reg_dist_var, 1.0, interpret=True)
+                 jnp.asarray(validity), reg_dist_var, diff_fac,
+                 interpret=True)
     ins = [torch.from_numpy(a) for a in
            (idepth, var, valid.astype(np.float32), validity)]
-    out = stencil.regularize_accumulators_plain(*ins, reg_dist_var, 1.0)
+    out = stencil.regularize_accumulators_plain(*ins, reg_dist_var, diff_fac)
     assert all(np.isfinite(np_(o)).all() for o in out)
     _assert_accumulators(xla, out)
     _assert_accumulators(pal, out)
@@ -150,12 +153,68 @@ def _assert_states(jstate, tstate, rtol=1e-6, atol=1e-6):
 
 
 @pytest.mark.parametrize("remove_occlusions", [False, True])
+def test_regularize_plain_matches_jax(shared_state, remove_occlusions):
+    """The fused entry's plain version against the jitted JAX regularize on
+    the shared state, which holds var = 0 at its invalid pixels. The
+    validity threshold is raised so that the deletions, the keeps and the
+    occlusion test all occur."""
+    _, state, *_ = shared_state
+    assert (state["var"][~state["valid"]] == 0).all()
+    dcfg = JaxConfig().depth
+    th = 10.0 * dcfg.val_sum_min_for_keep
+    want = jax.jit(jreg.regularize, static_argnums=(1, 2, 3))(
+        _jax_state(state), remove_occlusions, th, dcfg)
+    t = depth_state_from_dict(state, device="cpu")
+    tcfg = LSDConfig().depth
+    got = stencil.regularize_plain(
+        t.idepth, t.var, t.valid, t.validity, t.idepth_smoothed,
+        t.var_smoothed, t.blacklisted, float(tcfg.reg_dist_var_base),
+        float(tcfg.diff_fac_smoothing), th, remove_occlusions)
+    names = ("valid", "blacklisted", "idepth_smoothed", "var_smoothed")
+    want = to_dict(want)
+    for name, b in zip(names, got):
+        a, b = want[name], np_(b)
+        if name in ("valid", "blacklisted"):
+            np.testing.assert_array_equal(b, a, err_msg=name)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6,
+                                       err_msg=name)
+    # hypotheses are both deleted and kept (smoothed)
+    deleted = state["valid"] & ~np_(got[0])
+    kept = np_(got[2]) != state["idepth_smoothed"]
+    assert deleted.sum() > 10 and kept.sum() > 10, (deleted.sum(), kept.sum())
+
+
+def test_fused_wrapper_takes_plain_version_on_cpu(shared_state):
+    _, state, *_ = shared_state
+    t = depth_state_from_dict(state, device="cpu")
+    args = (t.idepth, t.var, t.valid, t.validity, t.idepth_smoothed,
+            t.var_smoothed, t.blacklisted, 0.005625, 1.0, 24.0, True)
+    before = stencil.FUSED_LAUNCHES
+    got = stencil.regularize_fused(*args)
+    want = stencil.regularize_plain(*args)
+    assert stencil.FUSED_LAUNCHES == before
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_fused_wrapper_raises_off_cpu_and_cuda():
+    f32 = [torch.empty(8, 8, device="meta") for _ in range(5)]
+    valid = torch.empty(8, 8, dtype=torch.bool, device="meta")
+    bl = torch.empty(8, 8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        stencil.regularize_fused(f32[0], f32[1], valid, f32[2], f32[3],
+                                 f32[4], bl, 0.005625, 1.0, 24.0, False)
+
+
+@pytest.mark.parametrize("remove_occlusions", [False, True])
 def test_regularize_matches_jax(shared_state, remove_occlusions):
     cam, state, *_ = shared_state
     dcfg = JaxConfig().depth
     want = jax.jit(jreg.regularize, static_argnums=(1, 2, 3))(
         _jax_state(state), remove_occlusions, dcfg.val_sum_min_for_keep, dcfg)
-    got = treg.regularize(depth_state_from_dict(state), remove_occlusions,
+    got = treg.regularize(depth_state_from_dict(state, device="cpu"),
+                          remove_occlusions,
                           dcfg.val_sum_min_for_keep, LSDConfig().depth)
     _assert_states(want, got)
 
@@ -165,7 +224,7 @@ def test_fill_holes_matches_jax(shared_state):
     dcfg = JaxConfig().depth
     want = jax.jit(jreg.fill_holes, static_argnums=(2, 3))(
         _jax_state(state), jnp.asarray(max_grad), dcfg, 5.0)
-    got = treg.fill_holes(depth_state_from_dict(state),
+    got = treg.fill_holes(depth_state_from_dict(state, device="cpu"),
                           torch.from_numpy(max_grad), LSDConfig().depth, 5.0)
     assert int(np.asarray(want.valid).sum()) > int(state["valid"].sum())
     _assert_states(want, got)
@@ -185,7 +244,7 @@ def test_propagate_matches_jax(shared_state, have_good_mask):
     want = prop(_jax_state(state), jnp.asarray(old_to_new),
                 jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(max_grad),
                 jnp.asarray(good))
-    got = treg.propagate(depth_state_from_dict(state),
+    got = treg.propagate(depth_state_from_dict(state, device="cpu"),
                          torch.from_numpy(old_to_new), torch.from_numpy(img0),
                          torch.from_numpy(img1), torch.from_numpy(max_grad),
                          torch.from_numpy(good), have_good_mask,

@@ -1,6 +1,7 @@
 """Rules of the port: it never loads JAX, a CUDA tensor never takes a plain
 version, and nothing falls back to the CPU quietly."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -9,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from lsd_slam_tpu_torch import interop
 from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import LSDConfig, SystemConfig
+from lsd_slam_tpu_torch.depth.state import DepthMapState
 from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
 from lsd_slam_tpu_torch.system import SlamSystem
+from lsd_slam_tpu_torch.utils import synth
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAM = Camera(fx=112.0, fy=112.0, cx=79.5, cy=63.5, width=160, height=128)
@@ -58,6 +62,29 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     assert all(o.is_cuda and o.shape == (37, 53) for o in out)
 
 
+@pytest.mark.cuda
+def test_fused_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+    def plain(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    monkeypatch.setattr(stencil, "regularize_plain", plain)
+    monkeypatch.setattr(stencil, "regularize_accumulators_plain", plain)
+    f32 = [torch.rand(37, 53, device="cuda") for _ in range(5)]
+    valid = torch.rand(37, 53, device="cuda") < 0.6
+    bl = torch.zeros(37, 53, dtype=torch.int32, device="cuda")
+    before = stencil.FUSED_LAUNCHES
+    out = stencil.regularize_fused(f32[0], f32[1], valid, f32[2], f32[3],
+                                   f32[4], bl, 0.005625, 1.0, 24.0, True)
+    torch.cuda.synchronize()
+    assert stencil.FUSED_LAUNCHES == before + 1
+    assert [o.dtype for o in out] == [torch.bool, torch.int32,
+                                      torch.float32, torch.float32]
+    assert all(o.is_cuda and o.shape == (37, 53) for o in out)
+
+
 def test_wrapper_takes_no_plain_version_off_the_cpu():
     """Only CPU tensors take the plain version: tensors on any other device
     than the CPU or a CUDA card raise instead of computing anything."""
@@ -70,6 +97,36 @@ def test_slam_system_without_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         SlamSystem(CAM, CFG)
+
+
+@pytest.mark.parametrize("entry", ["depth_state", "frame_pyramid",
+                                   "depth_pyramid", "point_set",
+                                   "tracking_ref", "render"])
+def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
+    """The state carried across and the synthetic renderer run on the card
+    unless the caller names a device; without one they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    z = np.zeros((4, 4), np.float32)
+    calls = {
+        "depth_state": lambda: interop.depth_state_from_dict(
+            {f.name: z for f in dataclasses.fields(DepthMapState)}),
+        "frame_pyramid": lambda: interop.frame_pyramid_from_dict(
+            dict(images=[z], gx=[z], gy=[z], max_grad=[z], quad=[z],
+                 num_mappable=0.0)),
+        "depth_pyramid": lambda: interop.depth_pyramid_from_dict(
+            dict(idepth=[z], ivar=[z])),
+        "point_set": lambda: interop.point_set_from_dict(
+            dict(idx=[0], ival=z, gx=z, gy=z, idp=z, ivr=z, valid=z,
+                 n_valid=1.0)),
+        "tracking_ref": lambda: interop.tracking_ref_from_dict(
+            dict(pts=[dict(idx=[0], ival=z, gx=z, gy=z, idp=z, ivr=z,
+                           valid=z, n_valid=1.0)])),
+        "render": lambda: synth.render(synth.PlaneScene(seed=0), CAM,
+                                       np.array([1, 0, 0, 0, 0, 0, 0],
+                                                np.float32)),
+    }
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()
 
 
 def test_slam_system_runs_where_asked():

@@ -59,8 +59,9 @@ def tracked():
     jres = JaxTracker(cam, cfg.tracker, 16.0, True).track(ref, frame, init)
     tres = SE3Tracker(Camera(**dataclasses.asdict(cam)),
                       LSDConfig(width=W, height=H).tracker, 16.0, True).track(
-        tracking_ref_from_dict(to_dict(ref)),
-        frame_pyramid_from_dict(to_dict(frame)), torch.from_numpy(init))
+        tracking_ref_from_dict(to_dict(ref), device="cpu"),
+        frame_pyramid_from_dict(to_dict(frame), device="cpu"),
+        torch.from_numpy(init))
     return to_dict(jres), np_(tres), tres
 
 
