@@ -29,6 +29,32 @@ prints no ok line:
                profiled pass (stage timers synchronised) gives the per-stage
                breakdown, and a third runs under torch.profiler. The fused
                entry is also timed on the loop's final state.
+  5. SLAM    — sequential SLAM at 640x480 (default LSDConfig(), SLAM on)
+               on BenchScene(seed=0) along bench_trajectory(N), rendered on
+               the card by render_realistic(noise_sigma=0): gt_depth_init,
+               track_frame for N-1 frames, a manual tracking loss and the
+               return leg fed backwards until the relocaliser recovers,
+               finalize (the scenario of tests/make_torch_slam_reference.py,
+               whose JAX run is stored in
+               lsd_slam_tpu_torch/reference_data/slam_bench_640x480.json).
+               Counters zeroed just before, read just after. Checks: the
+               same keyframe ids and tracking parents, edge pairs (in
+               order), loop-closure edges, counters and recovery frame as
+               the reference, both trajectories within the bounds of
+               SLAM_RUNS frame by frame, both ATEs within SLAM_ATE_RATIO of
+               the reference's, fused launches on the path and no
+               plain-version call. Prints frame p50/p95, the
+               keyframe-switch ms, the constraint-search ms per new
+               keyframe, PGO ms, host syncs per frame, and, from a second
+               pass under torch.profiler, the device busy share and the
+               top kernels; the fused entry is checked on its final state.
+  6. SLAM loop — the same scenario and checks at 160x128 on the 36-frame
+               out-and-back loop of tests/test_torch_slam.py
+               (PlaneScene(seed=13), loop_trajectory(36), the aggressive
+               keyframe settings of its reference), whose graph holds a
+               loop-closure edge: the 640x480 run's does not (see
+               tests/make_torch_slam_reference.py); reference
+               lsd_slam_tpu_torch/reference_data/slam_loop_160x128.json.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
 
     python3 chip_smoke.py --baseline-cu OLD.cu
@@ -45,6 +71,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -70,6 +97,25 @@ TRAJ_BOUND = 1e-3
 # H100 SXM: HBM3 rate and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+
+# The SLAM runs: (stored JAX reference, per-frame bound of the card's
+# trajectory against it for the camera centre in scene units, for the
+# rotation in rad). TRAJ_BOUND is below what the reference itself
+# reproduces with SLAM on: the Sim(3) LM stops on a relative-error test and
+# the pose-graph updates on pgo_min_change, so f32 summation order alone
+# moves the trajectory while the graph stays the same. Runs of
+# tests/make_torch_slam_reference.py on the CPU that differ from the stored
+# file only in rounding (--check-port with --threads 8, 3, and 4
+# --noise-seed 2; --check-jax --noise-seed 1; for the loop also --threads
+# 1) lie up to 4.86e-3 / 2.34e-3 rad from it on the bench and 3.06e-3 /
+# 1.16e-3 rad on the loop; each bound is about twice that.
+SLAM_RUNS = {
+    "slam": ("slam_bench_640x480.json", 1e-2, 5e-3),
+    "slam-loop": ("slam_loop_160x128.json", 6e-3, 2.5e-3),
+}
+# ... and the bound of the card's ATE (raw and after PGO) as a multiple of
+# the reference's: the same runs reach 1.05x on the bench, 1.16x on the loop
+SLAM_ATE_RATIO = 1.5
 
 STENCIL_RTOL = STENCIL_ATOL = 1e-6  # tests/test_pallas_stencil.py:36-38
 
@@ -115,6 +161,28 @@ def random_state(torch, rng, h, w):
     return [torch.as_tensor(a, device="cuda").contiguous() for a in (
         idepth, var, v, validity, id_sm.astype(np.float32),
         var_sm.astype(np.float32), bl)]
+
+
+@contextlib.contextmanager
+def counted_plain(stencil):
+    """Count the calls of the stencil's plain versions while inside; yields
+    a one-element list holding the count."""
+    calls = [0]
+    plains = {name: getattr(stencil, name) for name in (
+        "regularize_plain", "regularize_accumulators_plain")}
+
+    def counted(fn):
+        def call(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return call
+    for name, fn in plains.items():
+        setattr(stencil, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in plains.items():
+            setattr(stencil, name, fn)
 
 
 def max_err_of(a, b, err):
@@ -253,7 +321,8 @@ def run_vo(torch, ref, profile: bool):
     if profile:
         cfg = cfg.replace(system=dataclasses.replace(cfg.system,
                                                      profile_sync=True))
-    sys_ = SlamSystem(cam, cfg)  # device defaults to the card
+    # device defaults to the card; VO only, as the stored reference
+    sys_ = SlamSystem(cam, cfg, enable_slam=False)
     assert sys_.device.type == "cuda", sys_.device
     torch.cuda.synchronize()
     frame_ms = []
@@ -270,42 +339,215 @@ def run_vo(torch, ref, profile: bool):
     return sys_, poses, frame_ms, total_s
 
 
-def profile_vo(torch, ref):
-    """One more VO pass under torch.profiler: device busy share of the loop
-    and the kernels that take the device time. The profiler is
-    informational: one that cannot trace the card prints a note instead of
-    failing the run. A failure of the VO pass itself propagates."""
+def trace_device(torch, tag, run, n_tracked, top):
+    """Run `run()` (which returns its wall seconds) under torch.profiler,
+    tracing the card only, and print the device busy share of that wall
+    time and the kernels that take the device time. Kernel events are
+    summed from the raw trace: building the profiler's event tree for a
+    SLAM run (millions of events) would take longer than the run. The trace
+    is informational: a profiler that cannot trace the card prints a note
+    instead of failing the run; a failure of `run` itself propagates.
+    Returns the busy share, or None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CUDA])
         prof.start()
     except Exception as exc:  # noqa: BLE001 - informational phase
-        log(f"[vo-trace] profiler unavailable: {exc!r}")
-        return
-    _, _, _, total_s = run_vo(torch, ref, profile=False)
+        log(f"[{tag}] profiler unavailable: {exc!r}")
+        return None
+    total_s = run()
     try:
         prof.stop()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        events = prof.profiler.kineto_results.events()
     except Exception as exc:  # noqa: BLE001 - informational phase
-        log(f"[vo-trace] profiler unavailable: {exc!r}")
-        return
-    dev_us = [(getattr(e, "self_device_time_total", 0)
-               or getattr(e, "self_cuda_time_total", 0), e) for e in rows]
-    busy_ms = sum(t for t, _ in dev_us) / 1e3
-    launches = sum(e.count for _, e in dev_us)
-    n_tracked = ref["n_frames"] - 1
+        log(f"[{tag}] profiler unavailable: {exc!r}")
+        return None
+    by_name = {}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            ns, count = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
     if busy_ms == 0:
-        log("[vo-trace] the profiler saw no device time")
-        return
-    log(f"[vo-trace] loop wall {total_s * 1e3:.1f} ms (profiled), device "
-        f"busy {busy_ms:.1f} ms -> busy share {busy_ms / (total_s * 1e3):.3f};"
-        f" {launches / n_tracked:.0f} device ops per tracked frame")
-    for t, e in sorted(dev_us, key=lambda x: -x[0])[:10]:
-        log(f"[vo-trace]   {t / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        log(f"[{tag}] the profiler saw no device time")
+        return None
+    launches = sum(c for _, c in by_name.values())
+    share = busy_ms / (total_s * 1e3)
+    log(f"[{tag}] run wall {total_s * 1e3:.1f} ms (profiled), device busy "
+        f"{busy_ms:.1f} ms -> busy share {share:.3f}; "
+        f"{launches / n_tracked:.0f} device ops per tracked frame")
+    for name, (ns, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:top]:
+        log(f"[{tag}]   {ns / 1e6:9.3f} ms {count:7d}x  {name[:90]}")
+    return share
+
+
+SLAM_COUNTERS = ("keyframes_created", "keyframes_reactivated", "relocalized",
+                 "relocalization_rejected")
+
+
+def run_slam(torch, ref):
+    """The SLAM scenario of a stored reference on the card. Returns (the
+    system, gt poses, per-frame ms of frames 1..N-1, switch flags, the
+    frame the relocaliser recovered at, finalize ms, total s)."""
+    from lsd_slam_tpu_torch.config import LSDConfig
+    from lsd_slam_tpu_torch.system import SlamSystem
+    from lsd_slam_tpu_torch.utils import synth
+
+    n = ref["n_frames"]
+    cam = synth.default_camera(ref["width"], ref["height"])
+    if ref["scene"] == "bench":
+        scene = synth.BenchScene(seed=ref["scene_seed"])
+        poses = synth.bench_trajectory(n)
+        frames = [synth.render_realistic(scene, cam, poses[i], frame_index=i,
+                                         noise_sigma=ref["noise_sigma"],
+                                         device="cuda") for i in range(n)]
+    else:
+        scene = synth.PlaneScene(seed=ref["scene_seed"])
+        poses = synth.loop_trajectory(n)
+        frames = [synth.render(scene, cam, poses[i], device="cuda")
+                  for i in range(n)]
+    cfg = LSDConfig(width=ref["width"], height=ref["height"])
+    cfg = cfg.replace(keyframe=dataclasses.replace(cfg.keyframe,
+                                                   **ref["keyframe_config"]))
+    sys_ = SlamSystem(cam, cfg)  # SLAM on, on the card
+    assert sys_.device.type == "cuda" and sys_.backend is not None
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
+    frame_ms, switched = [], []
+    kf_id = sys_.current_keyframe.id
+    for i in range(1, n):
+        t0 = time.perf_counter()
+        sys_.track_frame(frames[i][0], i, i / 30.0)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        switched.append(sys_.current_keyframe.id != kf_id)
+        kf_id = sys_.current_keyframe.id
+    assert sys_.tracking_is_good, "SLAM tracking lost before the manual loss"
+    sys_.manual_tracking_loss = True
+    sys_.track_frame(frames[n - 1][0], n, n / 30.0)
+    recovered = None
+    for j, i in enumerate(range(n - 2, n // 2, -1)):
+        sys_.track_frame(frames[i][0], n + 1 + j, (n + 1 + j) / 30.0)
+        if sys_.tracking_is_good:
+            recovered = i
+            break
+    t0 = time.perf_counter()
+    sys_.finalize()
+    torch.cuda.synchronize()
+    fin_ms = (time.perf_counter() - t0) * 1e3
+    return (sys_, poses, np.asarray(frame_ms), np.asarray(switched),
+            recovered, fin_ms, time.perf_counter() - t_all)
+
+
+def slam_phase(torch, stencil, counted_plain, tag, trace):
+    """Phase 5 (`tag` "slam") or 6 ("slam-loop"): the run of SLAM_RUNS[tag]
+    against its stored reference, then, if `trace`, a second pass under
+    torch.profiler. Returns (fused launches on the path, the final state's
+    planes for the kernel check, the busy share or None)."""
+    from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
+
+    ref_file, traj_bound, rot_bound = SLAM_RUNS[tag]
+    with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
+                           ref_file)) as f:
+        ref = json.load(f)
+    n = ref["n_frames"]
+    with counted_plain() as plain_calls:
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        sys_, poses, fms, sw, recovered, fin_ms, total_s = run_slam(torch,
+                                                                    ref)
+        fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
+    st = sys_.stats.snapshot()
+    graph = sys_.backend.graph
+    kfs = [kf.id for kf in sys_.keyframes]
+    parents = [-1 if kf.pose.parent is None else kf.pose.parent.frame_id
+               for kf in sys_.keyframes]
+    edges = [[e.first.id, e.second.id] for e in graph.edges]
+    # loop closures: edges of which neither keyframe was tracked on the other
+    parent_of = dict(zip(kfs, parents))
+    loops = [[a, b] for a, b in edges
+             if parent_of.get(a) != b and parent_of.get(b) != a]
+    counters = {k: int(st.get(k, 0)) for k in SLAM_COUNTERS}
+    traj, opt = sys_.trajectory_array(), sys_.optimized_trajectory_array()
+    ate = float(ate_rmse(traj[:n], poses))
+    ate_opt = float(ate_rmse(opt[:n], poses))
+    log(f"[{tag}] N={n} {ref['width']}x{ref['height']} keyframes={kfs} "
+        f"(reference {ref['keyframe_ids']})")
+    log(f"[{tag}] parents {parents} (reference {ref['parent_ids']}); "
+        f"loop-closure edges {loops} (reference {ref['nonparent_edges']})")
+    log(f"[{tag}] edges {len(edges)} (reference {len(ref['edges'])}), "
+        f"counters {counters} (reference {ref['counters']}), recovered at "
+        f"frame {recovered} (reference {ref['recovered_at']})")
+    log(f"[{tag}] ATE {ate:.6g} (reference {ref['ate']:.6g}), after PGO "
+        f"{ate_opt:.6g} (reference {ref['ate_optimized']:.6g}); bound "
+        f"{SLAM_ATE_RATIO:g}x the reference's")
+    worst = {}
+    for key, got in (("trajectory_c2w_sim3", traj),
+                     ("optimized_c2w_sim3", opt)):
+        want = np.asarray(ref[key])
+        assert got.shape == want.shape, (key, got.shape, want.shape)
+        dc = np.linalg.norm(got[:, 4:7] - want[:, 4:7], axis=1)
+        da = np.asarray([rotation_angle(a[0:4], b[0:4])
+                         for a, b in zip(got, want)])
+        worst[key] = (float(dc.max()), float(da.max()))
+        log(f"[{tag}] {key}: max |centre - ref| {dc.max():.4g} (frame "
+            f"{int(dc.argmax())}), max rot diff {da.max():.4g} rad; bounds "
+            f"{traj_bound:g} / {rot_bound:g}")
+    n_new = max(int(st.get("sim3_stage0_n", 0)), 1)
+    search_ms = sum(st.get(f"sim3_stage{k}_ms", 0.0) for k in range(3))
+    syncs = sum(st.get(k, 0) for k in (
+        "host_syncs", "lm_syncs", "export_syncs", "switch_syncs",
+        "quick_syncs", "sim3_syncs", "backend_pulls"))
+    n_frames_run = len(sys_.all_frame_poses) + 1   # + the lost frame
+    log(f"[{tag}] frame p50 {np.percentile(fms, 50):.3f} ms, p95 "
+        f"{np.percentile(fms, 95):.3f} ms over frames 1..{n - 1}; "
+        f"keyframe-switch frames {int(sw.sum())}, median "
+        f"{np.median(fms[sw]) if sw.any() else float('nan'):.1f} ms, max "
+        f"{fms[sw].max() if sw.any() else float('nan'):.1f} ms; total "
+        f"{total_s:.2f} s")
+    log(f"[{tag}] constraint search {search_ms / n_new:.1f} ms per new "
+        f"keyframe over {n_new} (stages (4,3) {st.get('sim3_stage0_ms', 0):.1f}"
+        f", (2,2) {st.get('sim3_stage1_ms', 0):.1f}, (1,1) "
+        f"{st.get('sim3_stage2_ms', 0):.1f} ms in all); PGO "
+        f"{st.get('pgo_ms', 0.0):.1f} ms over {int(st.get('pgo_calls', 0))} "
+        f"solves, finalize {fin_ms:.1f} ms")
+    log(f"[{tag}] host syncs per frame {syncs / n_frames_run:.2f} (pack "
+        f"pulls {st.get('host_syncs', 0):.0f}, SE3 LM flags "
+        f"{st.get('lm_syncs', 0):.0f}, quick LM flags "
+        f"{st.get('quick_syncs', 0):.0f}, Sim3 LM flags "
+        f"{st.get('sim3_syncs', 0):.0f}, back-end pulls "
+        f"{st.get('backend_pulls', 0):.0f}, exports "
+        f"{st.get('export_syncs', 0):.0f}, switch rescales "
+        f"{st.get('switch_syncs', 0):.0f}) over {n_frames_run} frames")
+    log(f"[{tag}] stage ms (dispatch windows): {sys_.timers.summary()}")
+    log(f"[{tag}] regularize_fused launches {fused}, regularize_accumulators "
+        f"launches {acc}, plain-version calls {plain_calls[0]}")
+    assert kfs == ref["keyframe_ids"], (kfs, ref["keyframe_ids"])
+    assert parents == ref["parent_ids"], (parents, ref["parent_ids"])
+    assert edges == ref["edges"], "edge pairs differ from the reference"
+    assert loops == ref["nonparent_edges"], (loops, ref["nonparent_edges"])
+    assert loops or tag != "slam-loop", "the loop run closes no loop"
+    assert counters == ref["counters"], (counters, ref["counters"])
+    assert recovered == ref["recovered_at"], (recovered, ref["recovered_at"])
+    assert sys_.tracking_is_good, "SLAM run ends lost"
+    assert ate <= SLAM_ATE_RATIO * ref["ate"], (ate, ref["ate"])
+    assert ate_opt <= SLAM_ATE_RATIO * ref["ate_optimized"], (
+        ate_opt, ref["ate_optimized"])
+    for key, (dc, da) in worst.items():
+        assert dc <= traj_bound and da <= rot_bound, (
+            f"{key} off the JAX reference: centre {dc}, rotation {da}")
+    assert fused >= n and acc == 0 and plain_calls[0] == 0, (
+        fused, acc, plain_calls)
+    share = None
+    if trace:
+        share = trace_device(torch, f"{tag}-trace",
+                             lambda: run_slam(torch, ref)[-1], n - 1, 12)
+    s = sys_.map.state
+    return fused, [s.idepth, s.var, s.valid, s.validity, s.idepth_smoothed,
+                   s.var_smoothed, s.blacklisted], share
 
 
 def check_kernels(torch, stencil, reg_dist_var, diff_facs, validity_th):
@@ -432,6 +674,11 @@ def main() -> int:
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
 
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- 1. device ----
     card = card_line()
     log(f"[device] {card} | torch {torch.__version__} cuda "
@@ -467,28 +714,16 @@ def main() -> int:
     log(f"[kernel] 480x640 bounds: accumulators {acc_bound:.5f} ms "
         f"({acc_by}), fused {fused_bound:.5f} ms ({fused_by})")
 
+    phase_done("build and kernels")
+
     # ---- 4. VO at full width ----
     with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
                            "vo_orbit_640x480.json")) as f:
         ref = json.load(f)
-    plain_calls = [0]
-    plains = {name: getattr(stencil, name) for name in (
-        "regularize_plain", "regularize_accumulators_plain")}
-
-    def counted(fn):
-        def call(*a, **k):
-            plain_calls[0] += 1
-            return fn(*a, **k)
-        return call
-    for name, fn in plains.items():
-        setattr(stencil, name, counted(fn))
-    stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
-    try:
+    with counted_plain(stencil) as plain_calls:
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
-    finally:
-        for name, fn in plains.items():
-            setattr(stencil, name, fn)
-    launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
+        launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
     st = sys_.stats.snapshot()
     n = ref["n_frames"]
     traj = sys_.trajectory_array()
@@ -558,7 +793,34 @@ def main() -> int:
     psys, _, pframe_ms, _ = run_vo(torch, ref, profile=True)
     log(f"[vo-profiled] p50 {np.percentile(pframe_ms, 50):.3f} ms; stages: "
         f"{psys.timers.summary()}")
-    profile_vo(torch, ref)
+    trace_device(torch, "vo-trace",
+                 lambda: run_vo(torch, ref, profile=False)[-1],
+                 ref["n_frames"] - 1, 10)
+
+    phase_done("VO")
+
+    # ---- 5. SLAM at full width ----
+    log(f"[slam] card: {card}")
+    slam_fused, slam_state, busy_share = slam_phase(
+        torch, stencil, functools.partial(counted_plain, stencil), "slam",
+        trace=True)
+    for occ in (False, True):
+        e, deleted, kept = compare_fused(
+            torch, stencil, slam_state, reg_dist_var, diff_fac,
+            float(dcfg.val_sum_min_for_keep), occ)
+        err_fused = max(err_fused, e)
+        log(f"[kernel] regularize_fused on the final SLAM state, "
+            f"remove_occlusions={occ}: ok, max abs err {e:g} ({deleted} "
+            f"deleted, {kept} kept)")
+
+    phase_done("SLAM")
+
+    # ---- 6. SLAM with a loop closure, 160x128 ----
+    loop_fused, _, _ = slam_phase(
+        torch, stencil, functools.partial(counted_plain, stencil),
+        "slam-loop", trace=False)
+
+    phase_done("SLAM loop")
 
     common = dict(route="cuda",
                   source="lsd_slam_tpu_torch/csrc/regularize_stencil.cu",
@@ -566,7 +828,10 @@ def main() -> int:
                   library_ms=None)
     log(json.dumps({"kernels": [
         dict(name="regularize_fused", **common,
-             launches=fused_launches, max_abs_err=err_fused,
+             launches=fused_launches + slam_fused + loop_fused,
+             vo_launches=fused_launches, slam_launches=slam_fused,
+             slam_loop_launches=loop_fused,
+             slam_busy_share=busy_share, max_abs_err=err_fused,
              ms=t["fused_warm"], kernel_ms=t["fused_warm"],
              cold_ms=t["fused_cold"], plain_ms=t["fused_plain"],
              bound_ms=fused_bound, bound_by=fused_by,

@@ -4,13 +4,13 @@ Port of lsd_slam_tpu/depth/depth_map.py (DepthMap.h:53-84). The JAX
 package's jitted programs become plain functions on DepthMapState:
 `observe_program` (observe + fill holes + regularize + export, one per
 tracked frame), `create_kf_program` (propagate, regularize, fill holes,
-regularize, renormalize), `finalize_program`, `init_random`, `init_gt`
-and `export_arrays`. The static observe budget buckets are kept: the
-budget decides which pixels a sweep truncates, so it must match.
+regularize, renormalize), `finalize_program`, `set_from_existing_program`
+(keyframe re-activation), `init_random`, `init_gt` and `export_arrays`.
+The static observe budget buckets are kept: the budget decides which
+pixels a sweep truncates, so it must match.
 
-Not ported yet: `_set_from_existing` (keyframe re-activation) and the
-multi-reference `observe_multi` sweep — both are reached only with the
-SLAM back-end or in threaded mode.
+Not ported yet: the multi-reference `observe_multi` sweep (ROADMAP Queue 1
+item 1), which the sequential engine never reaches.
 """
 
 from __future__ import annotations
@@ -133,6 +133,34 @@ def finalize_program(state, kf_max_grad, cfg: LSDConfig):
                               dcfg, mcfg.depth_smoothing_factor)
 
 
+def set_from_existing_program(re_idepth, re_var, re_validity,
+                              cfg: LSDConfig) -> DepthMapState:
+    """setFromExistingKF (DepthMap.cpp:920-962): rebuild the state from a
+    keyframe's re-activation snapshot, then regularize without removing
+    occlusions."""
+    dcfg, mcfg = cfg.depth, cfg.mapping
+    valid = re_var > 0
+    zero = torch.zeros_like(re_idepth)
+    neg = torch.full_like(re_idepth, -1.0)
+    state = DepthMapState(
+        valid=valid,
+        idepth=torch.where(valid, re_idepth, zero),
+        var=torch.where(valid, re_var, zero),
+        idepth_smoothed=neg,
+        var_smoothed=neg.clone(),
+        validity=torch.where(valid, re_validity, zero),
+        blacklisted=torch.where(
+            ~valid & (re_var == -2.0),
+            torch.full(re_var.shape, dcfg.min_blacklist - 1,
+                       dtype=torch.int32, device=re_var.device),
+            torch.zeros(re_var.shape, dtype=torch.int32,
+                        device=re_var.device)),
+        next_min_id=torch.zeros_like(re_idepth),
+    )
+    return reg_mod.regularize(state, False, dcfg.val_sum_min_for_keep, dcfg,
+                              mcfg.depth_smoothing_factor)
+
+
 def _seeded_state(valid, idepth, var0, cfg: LSDConfig) -> DepthMapState:
     h, w = valid.shape
     dev = valid.device
@@ -216,6 +244,17 @@ class DepthMap:
 
     def initialize_from_gt(self, gt_idepth, kf_max_grad):
         self.state = init_gt(gt_idepth, kf_max_grad, self.cfg)
+        self._reset_counts()
+
+    def set_from_existing_kf(self, re_idepth, re_var, re_validity):
+        """Re-activate a keyframe from its snapshot (host numpy once the
+        keyframe was minimized, else device tensors)."""
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.float32,
+                                   device=self.device)
+        self._fresh_export = None
+        self.state = set_from_existing_program(
+            dev(re_idepth), dev(re_var), dev(re_validity), self.cfg)
         self._reset_counts()
 
     def snapshot(self):

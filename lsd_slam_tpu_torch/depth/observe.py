@@ -497,8 +497,14 @@ def _fuse_results(state, code, r_idepth, r_var, r_epl, can_update,
     fused_idepth = _unzero((1.0 - wgt) * r_idepth + wgt * state.idepth)
     fused_var = torch.minimum(id_var * wgt, state.var)
 
-    validity_cap = (dcfg.validity_counter_max
-                    + kf_max_grad * dcfg.validity_counter_max_variable / 255.0)
+    # rounded as the XLA program does: x / 255 becomes x * f32(1/255), the
+    # two constants fold into one f32 factor, then one fused multiply-add
+    # (the exact product in f64). fill_holes compares 5x5 validity sums
+    # with integer thresholds, so an ulp here can flip a hole fill.
+    cap_fac = float(np.float32(dcfg.validity_counter_max_variable)
+                    * np.float32(1.0 / 255.0))
+    validity_cap = (kf_max_grad.double() * cap_fac
+                    + dcfg.validity_counter_max).to(torch.float32)
 
     new_idepth = torch.where(create_success, _unzero(r_idepth),
                              torch.where(upd_success, fused_idepth,

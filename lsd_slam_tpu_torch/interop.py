@@ -21,6 +21,7 @@ from lsd_slam_tpu_torch.config import (
     MappingConfig, SystemConfig)
 from lsd_slam_tpu_torch.depth.state import DepthMapState
 from lsd_slam_tpu_torch.frames.pyramid import FramePyramid, DepthPyramid
+from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
 from lsd_slam_tpu_torch.tracking.reference import PointSet, TrackingRef
 
 _CONFIG_FIELDS = dict(tracker=TrackerConfig, sim3_tracker=TrackerConfig,
@@ -88,6 +89,32 @@ def point_set_from_dict(d: dict, device=None) -> PointSet:
 
 
 def tracking_ref_from_dict(d: dict, device=None) -> TrackingRef:
+    """A TrackingRef, with its Sim3 target layouts where the dict has
+    them (`sim3_quad`, None per level otherwise)."""
     pts = tuple(None if p is None else point_set_from_dict(p, device)
                 for p in d["pts"])
-    return TrackingRef(pts=pts, sim3_quad=(None,) * len(pts))
+    quads = d.get("sim3_quad") or (None,) * len(pts)
+    return TrackingRef(pts=pts, sim3_quad=_levels(quads, device,
+                                                  torch.float32))
+
+
+def pose_graph_from_dict(d: dict, device=None) -> PoseGraph:
+    """A PoseGraph from the JAX PoseGraph's host lists: `poses` (N, 8)
+    camToWorld, `fixed` (N,), and per edge `e_from`, `e_to`, `e_meas_inv`
+    (the inverse measurement, (E, 8)), `e_info` (E, 7, 7), `e_delta`."""
+    g = PoseGraph(device=device)
+    g.poses = [np.asarray(p, np.float64) for p in d["poses"]]
+    g.fixed = [bool(f) for f in d["fixed"]]
+    g.e_from = [int(i) for i in d["e_from"]]
+    g.e_to = [int(i) for i in d["e_to"]]
+    g.e_meas_inv = [np.asarray(m, np.float64) for m in d["e_meas_inv"]]
+    g.e_info = [np.asarray(m, np.float64) for m in d["e_info"]]
+    g.e_delta = [float(x) for x in d["e_delta"]]
+    return g
+
+
+def reactivation_from_dict(d: dict, device=None):
+    """A keyframe's re-activation snapshot (Keyframe.reactivation): the
+    tuple (idepth, var, validity) from a dict with those keys."""
+    return tuple(_t(d[k], device, torch.float32)
+                 for k in ("idepth", "var", "validity"))

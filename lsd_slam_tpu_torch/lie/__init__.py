@@ -11,6 +11,7 @@ from lsd_slam_tpu_torch.lie.groups import (  # noqa: F401
     quat_normalize,
     quat_rotate,
     quat_to_matrix,
+    matrix_to_quat,
     hat,
     so3_exp,
     so3_log,
@@ -20,6 +21,14 @@ from lsd_slam_tpu_torch.lie.groups import (  # noqa: F401
     se3_mul,
     se3_inverse,
     se3_apply,
+    se3_adjoint,
     se3_from_sim3,
     sim3_from_se3,
+    sim3_identity,
+    sim3_exp,
+    sim3_log,
+    sim3_mul,
+    sim3_inverse,
+    sim3_apply,
+    sim3_adjoint,
 )

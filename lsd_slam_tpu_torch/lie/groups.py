@@ -1,10 +1,11 @@
-"""Branch-free quaternion / SE(3) ops in torch f32.
+"""Branch-free quaternion / SE(3) / Sim(3) ops in torch f32.
 
-Port of lsd_slam_tpu/lie/groups.py, limited to what the VO path calls:
-quaternion and SE3 exp/log/mul/inverse, `quat_to_matrix`, and the Sim3 <->
-SE3 converters. Same layouts and tangent ordering ([upsilon, omega]); every
-function takes arbitrary leading batch dims and keeps the input dtype and
-device. Matrix products are plain f32 (the package disables TF32).
+Port of lsd_slam_tpu/lie/groups.py: quaternion, SE3 and Sim3
+exp/log/mul/inverse/apply/adjoint, `quat_to_matrix` / `matrix_to_quat`,
+and the Sim3 <-> SE3 converters. Same layouts and tangent ordering
+([upsilon, omega(, sigma)]); every function takes arbitrary leading batch
+dims and keeps the input dtype and device. Matrix products are plain f32
+(the package disables TF32).
 """
 
 from __future__ import annotations
@@ -66,6 +67,37 @@ def quat_to_matrix(q):
         dim=-1,
     )
     return r.reshape(r.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m):
+    """Rotation matrix (..., 3, 3) -> unit quaternion, branch-free: the
+    four candidates (one per dominant diagonal term) blended by where."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-12))
+
+    q0w = safe_sqrt(1.0 + tr)
+    q0 = torch.stack([q0w, (m21 - m12) / q0w, (m02 - m20) / q0w,
+                      (m10 - m01) / q0w], -1)
+    q1x = safe_sqrt(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / q1x, q1x, (m01 + m10) / q1x,
+                      (m02 + m20) / q1x], -1)
+    q2y = safe_sqrt(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m02 - m20) / q2y, (m01 + m10) / q2y, q2y,
+                      (m12 + m21) / q2y], -1)
+    q3z = safe_sqrt(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m10 - m01) / q3z, (m02 + m20) / q3z,
+                      (m12 + m21) / q3z, q3z], -1)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11], -1)
+    best = torch.argmax(scores, dim=-1)[..., None]
+    q = torch.where(best == 0, q0, torch.where(
+        best == 1, q1, torch.where(best == 2, q2, q3)))
+    return quat_normalize(0.5 * q)
 
 
 def hat(w):
@@ -169,6 +201,72 @@ def se3_inverse(g):
 
 def se3_apply(g, p):
     return quat_rotate(g[..., 0:4], p) + g[..., 4:7]
+
+
+def se3_adjoint(g):
+    """Adjoint in [upsilon, omega] ordering: [[R, hat(t)R], [0, R]]."""
+    r = quat_to_matrix(g[..., 0:4])
+    adj = torch.zeros(g.shape[:-1] + (6, 6), dtype=g.dtype, device=g.device)
+    adj[..., 0:3, 0:3] = r
+    adj[..., 0:3, 3:6] = torch.matmul(hat(g[..., 4:7]), r)
+    adj[..., 3:6, 3:6] = r
+    return adj
+
+
+# Sim(3): (..., 8) = [quat(4), t(3), s]; tangent (..., 7) = [ups, omega, sigma]
+
+def sim3_identity(batch_shape=(), dtype=torch.float32, device=None):
+    g = torch.zeros(tuple(batch_shape) + (8,), dtype=dtype, device=device)
+    g[..., 0] = 1.0
+    g[..., 7] = 1.0
+    return g
+
+
+def sim3_exp(tangent):
+    ups, omega, sigma = tangent[..., 0:3], tangent[..., 3:6], tangent[..., 6]
+    q = so3_exp(omega)
+    t = torch.matmul(_w_matrix(omega, sigma), ups.unsqueeze(-1)).squeeze(-1)
+    return torch.cat([q, t, torch.exp(sigma)[..., None]], dim=-1)
+
+
+def sim3_log(g):
+    q, t, s = g[..., 0:4], g[..., 4:7], g[..., 7]
+    omega = so3_log(q)
+    sigma = torch.log(s)
+    ups = _solve33(_w_matrix(omega, sigma), t)
+    return torch.cat([ups, omega, sigma[..., None]], dim=-1)
+
+
+def sim3_mul(a, b):
+    qa, ta, sa = a[..., 0:4], a[..., 4:7], a[..., 7:8]
+    qb, tb, sb = b[..., 0:4], b[..., 4:7], b[..., 7:8]
+    return torch.cat([quat_normalize(quat_mul(qa, qb)),
+                      sa * quat_rotate(qa, tb) + ta, sa * sb], dim=-1)
+
+
+def sim3_inverse(g):
+    q, t, s = g[..., 0:4], g[..., 4:7], g[..., 7:8]
+    qi = quat_conj(q)
+    si = 1.0 / s
+    return torch.cat([qi, -si * quat_rotate(qi, t), si], dim=-1)
+
+
+def sim3_apply(g, p):
+    return g[..., 7:8] * quat_rotate(g[..., 0:4], p) + g[..., 4:7]
+
+
+def sim3_adjoint(g):
+    """Sim3 adjoint, [ups, omega, sigma] ordering (Sophus sim3.hpp Adj):
+    [[s R, hat(t) R, -t], [0, R, 0], [0, 0, 1]]."""
+    r = quat_to_matrix(g[..., 0:4])
+    t = g[..., 4:7]
+    adj = torch.zeros(g.shape[:-1] + (7, 7), dtype=g.dtype, device=g.device)
+    adj[..., 0:3, 0:3] = g[..., 7, None, None] * r
+    adj[..., 0:3, 3:6] = torch.matmul(hat(t), r)
+    adj[..., 0:3, 6] = -t
+    adj[..., 3:6, 3:6] = r
+    adj[..., 6, 6] = 1.0
+    return adj
 
 
 def se3_from_sim3(g):

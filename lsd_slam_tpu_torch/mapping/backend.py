@@ -1,0 +1,108 @@
+"""SLAM back-end orchestration, sequential mode (torch).
+
+Port of lsd_slam_tpu/mapping/backend.py (the constraint-search and
+optimisation threads of SlamSystem.cpp:266-381) for `sequential=True`:
+both run inline after each new keyframe; optimised poses are staged and
+merged back on the mapping path (mergeOptimizationOffset,
+SlamSystem.cpp:176-202). The threaded form (`sequential=False`) is not
+ported yet: ROADMAP Queue 1 item 5.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    from lsd_slam_tpu_torch.system.slam_system import SlamSystem
+    from lsd_slam_tpu_torch.system.keyframe import Keyframe
+
+
+class MappingBackend:
+    """Owns the keyframe graph, the constraint trackers and the
+    optimiser."""
+
+    def __init__(self, system: "SlamSystem"):
+        if not system.cfg.system.sequential:
+            raise NotImplementedError(
+                "sequential=False (the constraint and optimisation threads) "
+                "is not ported yet: ROADMAP Queue 1 item 5")
+        self.system = system
+        self._graph = None
+        self._have_unmerged = False
+        self._finalizing = False
+
+    def _ensure(self):
+        if self._graph is None:
+            from lsd_slam_tpu_torch.mapping.keyframe_graph import \
+                KeyFrameGraph
+            self._graph = KeyFrameGraph(self.system)
+        return self._graph
+
+    @property
+    def graph(self):
+        return self._ensure()
+
+    def on_new_keyframe(self, kf: "Keyframe"):
+        graph = self._ensure()
+        graph.add_keyframe(kf)
+        n_added = graph.find_constraints_for_new_keyframe(
+            kf, force_parent=True)
+        # the reference optimises only when constraints arrived
+        # (newConstraintAdded handshake, SlamSystem.cpp:359-381)
+        if n_added > 0:
+            changed = graph.optimize_slices(
+                max_slices=self.system.cfg.system.pgo_max_slices_per_update)
+            if changed:
+                self._have_unmerged = True
+
+    def merge_optimization_offset(self):
+        """Apply staged graph-opt results (SlamSystem.cpp:176-202)."""
+        if not self._have_unmerged or self._graph is None:
+            return
+        if self.system.cfg.system.defer_pgo_merge and not self._finalizing:
+            return  # measurement mode: merges land only at finalize
+        needs_publish = False
+        for kf in list(self.system.keyframes):
+            if kf.pose.apply_graph_opt_result():
+                needs_publish = True
+        if needs_publish:
+            self.system.registry.invalidate_all()
+        self._have_unmerged = False
+
+    def refresh_permaref(self, kf):
+        """== Frame::setPermaRef at finishCurrentKeyframe."""
+        if self._graph is not None:
+            self._graph.set_permaref(kf)
+
+    def find_reposition_candidate(self, tracked, max_score: float):
+        if self._graph is None:
+            return None
+        return self._graph.find_reposition_candidate(tracked, max_score)
+
+    def relocalize(self, pyr):
+        if self._graph is None:
+            return None
+        return self._graph.relocalize(pyr)
+
+    def full_reconstraint_search(self):
+        """Re-search constraints for every keyframe
+        (== doFullReConstraintTrack, SlamSystem.cpp:332-350)."""
+        if self._graph is None:
+            return 0
+        n = 0
+        for kf in list(self.system.keyframes):
+            n += self._graph.find_constraints_for_new_keyframe(
+                kf, force_parent=False)
+        return n
+
+    def finalize(self):
+        """Final full optimisation (SlamSystem.cpp:225-263)."""
+        self._finalizing = True
+        if self._graph is None:
+            return
+        if self.system.cfg.system.full_reconstraint_on_finalize:
+            self.full_reconstraint_search()
+            self._graph.optimize_slices()
+        self._graph.optimize_final()
+        self._have_unmerged = True
+        self.merge_optimization_offset()

@@ -80,9 +80,18 @@ def quad_coords(h: int, w: int, u, v):
 def quad_sample(quad: torch.Tensor, h: int, w: int, u, v):
     """Bilinear-sample a quad-packed image with one row gather.
 
-    Returns (channels, raw_rows, (fu, fv)) like the JAX version."""
-    c = quad.shape[1] // 4
+    `quad` is one (H*W, 4C) layout, or a stack (B, H*W, 4C) with one
+    layout per lane of u, v (B, N): each lane's rows are clipped to its own
+    layout, as under `jax.vmap`. Returns (channels, raw_rows, (fu, fv))
+    like the JAX version; raw_rows is (u.numel(), 4C)."""
+    c = quad.shape[-1] // 4
     idx, fu, fv = quad_coords(h, w, u, v)
+    if quad.dim() == 3:
+        m = quad.shape[1]
+        lane = torch.arange(quad.shape[0], device=quad.device) * m
+        idx = torch.clamp(idx, 0, m - 1) + lane.reshape(
+            (-1,) + (1,) * (idx.dim() - 1))
+        quad = quad.reshape(-1, quad.shape[-1])
     g = _take_clip(quad, idx.reshape(-1))  # (N, 4C)
     w00 = ((1 - fu) * (1 - fv)).reshape(-1)
     w01 = (fu * (1 - fv)).reshape(-1)
@@ -94,6 +103,16 @@ def quad_sample(quad: torch.Tensor, h: int, w: int, u, v):
         for k in range(c)
     ]
     return outs, g, (fu, fv)
+
+
+def quad_nearest(raw_rows: torch.Tensor, k: int, c: int, fu, fv):
+    """Channel k of the tap nearest to (u, v), from quad_sample's raw rows
+    (the reference's rounded-pixel depth lookup, Sim3Tracker.cpp:527-541)."""
+    right = (fu > 0.5).reshape(-1)
+    down = (fv > 0.5).reshape(-1)
+    top = torch.where(right, raw_rows[:, c + k], raw_rows[:, k])
+    bot = torch.where(right, raw_rows[:, 3 * c + k], raw_rows[:, 2 * c + k])
+    return torch.where(down, bot, top).reshape(fu.shape)
 
 
 def patch16_pack(img: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,9 @@ device-memory minimization.
 Port of lsd_slam_tpu/system/keyframe.py (Frame's keyframe role plus
 FrameMemory's active-frame LRU, FrameMemory.cpp:129-166): a minimized
 keyframe keeps only host (numpy) copies of its level-0 image and depth;
-the pyramids and the tracking reference are rebuilt on next access. The
-Sim3 reference layouts (`sim3_ref`) belong to the SLAM back-end and are
-not ported yet.
+the pyramids and the tracking reference are rebuilt on next access.
+`sim3_ref` (the tracking reference with the Sim3 target layouts) is built
+lazily for constraint search and dropped by every depth refresh.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ class Keyframe:
         self._pyr = pyr
         self._depth = None
         self._tracking_ref = None
+        self._sim3_ref = None
         # host copies (authoritative once minimized)
         self._host_image: Optional[np.ndarray] = None
         self._host_idepth: Optional[np.ndarray] = None
@@ -44,7 +45,10 @@ class Keyframe:
         self.last_use_counter = 0
 
         self.reactivation: Optional[tuple] = None
+        self.tracking_failed: dict = {}
         self.initial_tracked_residual = 1.0
+        self.edge_error_sum = 1.0
+        self.edges_num = 1
 
     # ------------------------------------------------------------ access
 
@@ -67,6 +71,16 @@ class Keyframe:
         return self._tracking_ref
 
     @property
+    def sim3_ref(self):
+        """tracking_ref with the Sim3 target layouts filled, built lazily
+        and cached: only keyframes entering constraint search pay for it."""
+        if self._sim3_ref is None:
+            from lsd_slam_tpu_torch.tracking import add_sim3_quads
+            self._sim3_ref = add_sim3_quads(self.tracking_ref, self.pyr,
+                                            self.depth)
+        return self._sim3_ref
+
+    @property
     def is_minimized(self) -> bool:
         return self._pyr is None
 
@@ -77,6 +91,7 @@ class Keyframe:
         """== Frame::setDepth + buildIDepthAndIDepthVar."""
         self._host_idepth = None
         self._host_ivar = None
+        self._sim3_ref = None
         self.mean_idepth = float(mean_idepth)
         self.num_points = int(num_points)
         self._build_depth(idepth0, ivar0, levels)
@@ -87,7 +102,7 @@ class Keyframe:
 
         self._depth = build_depth_pyramid(idepth0, ivar0, levels)
         self._tracking_ref = make_tracking_ref(self.pyr, self._depth,
-                                               min_level=1)
+                                               min_level=1, with_sim3=False)
 
     # ------------------------------------------------------------ memory
 
@@ -105,6 +120,7 @@ class Keyframe:
         self._pyr = None
         self._depth = None
         self._tracking_ref = None
+        self._sim3_ref = None
 
     def _restore(self):
         """Rebuild pyramids from host copies (== Frame::require/build*)."""
@@ -122,8 +138,8 @@ class Keyframe:
                 torch.as_tensor(self._host_idepth, device=self.device),
                 torch.as_tensor(self._host_ivar, device=self.device),
                 self.levels)
-            self._tracking_ref = make_tracking_ref(self._pyr, self._depth,
-                                                   min_level=1)
+            self._tracking_ref = make_tracking_ref(
+                self._pyr, self._depth, min_level=1, with_sim3=False)
 
     def cam_to_world(self) -> np.ndarray:
         return self.pose.cam_to_world()

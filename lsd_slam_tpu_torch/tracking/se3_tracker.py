@@ -67,12 +67,25 @@ HOST_PACK = dict(ref_to_frame=slice(0, 7), frame_to_ref=slice(7, 14),
                  affine_a=20, affine_b=21, initial_residual=22)
 
 
+def _col(x):
+    """A per-lane value (B,) as a column (B, 1) that broadcasts over the
+    points; scalars and 0-d tensors pass through."""
+    return x.unsqueeze(-1) if torch.is_tensor(x) and x.dim() > 0 else x
+
+
 def _residual_pass(pose, aff_a, aff_b, pts: PointSet, frame_quad,
                    cam: Camera, cfg: TrackerConfig):
-    """One warp + gather + residual sweep (== calcResidualAndBuffers)."""
+    """One warp + gather + residual sweep (== calcResidualAndBuffers).
+
+    Batched as `jax.vmap` of the JAX function: pose (..., 7) and the affine
+    pair (...) may carry lanes, the point fields (..., N) and the quad
+    layout ((H*W, 12) shared or (B, H*W, 12) per lane) broadcast against
+    them; every sum reduces the last (point) axis."""
     h, w = cam.height, cam.width
-    rot = lie.quat_to_matrix(pose[0:4])
-    t = pose[4:7]
+    rot = lie.quat_to_matrix(pose[..., 0:4])
+    t = pose[..., 4:7]
+    r_ = [[rot[..., i, j, None] for j in range(3)] for i in range(3)]
+    t_ = [t[..., i, None] for i in range(3)]
 
     xs = (pts.idx % w).to(torch.float32)
     ys = torch.div(pts.idx, w, rounding_mode="floor").to(torch.float32)
@@ -80,9 +93,9 @@ def _residual_pass(pose, aff_a, aff_b, pts: PointSet, frame_quad,
     z_ref = 1.0 / safe_id
     px = (xs - cam.cx) / cam.fx * z_ref
     py = (ys - cam.cy) / cam.fy * z_ref
-    wx = rot[0, 0] * px + rot[0, 1] * py + rot[0, 2] * z_ref + t[0]
-    wy = rot[1, 0] * px + rot[1, 1] * py + rot[1, 2] * z_ref + t[1]
-    wz = rot[2, 0] * px + rot[2, 1] * py + rot[2, 2] * z_ref + t[2]
+    wx = r_[0][0] * px + r_[0][1] * py + r_[0][2] * z_ref + t_[0]
+    wy = r_[1][0] * px + r_[1][1] * py + r_[1][2] * z_ref + t_[1]
+    wz = r_[2][0] * px + r_[2][1] * py + r_[2][2] * z_ref + t_[2]
 
     safe_wz = torch.where(wz == 0, torch.full_like(wz, 1e-9), wz)
     u = wx / safe_wz * cam.fx + cam.cx
@@ -91,20 +104,19 @@ def _residual_pass(pose, aff_a, aff_b, pts: PointSet, frame_quad,
 
     (i_new, gxn, gyn), _, _ = quad_sample(frame_quad, h, w, u, v)
 
-    c1 = aff_a * pts.ival + aff_b
+    c1 = _col(aff_a) * pts.ival + _col(aff_b)
     r = c1 - i_new
 
-    m = in_img.to(torch.float32)
     zero = torch.zeros_like(r)
     ar = torch.abs(r)
     wa = torch.where(in_img, torch.where(ar < 5.0, torch.ones_like(r),
                                          5.0 / torch.clamp_min(ar, 1e-6)),
                      zero)
-    sxx = torch.sum(c1 * c1 * wa)
-    syy = torch.sum(i_new * i_new * wa)
-    sx = torch.sum(c1 * wa)
-    sy = torch.sum(i_new * wa)
-    sw = torch.sum(wa)
+    sxx = torch.sum(c1 * c1 * wa, dim=-1)
+    syy = torch.sum(i_new * i_new * wa, dim=-1)
+    sx = torch.sum(c1 * wa, dim=-1)
+    sy = torch.sum(i_new * wa, dim=-1)
+    sw = torch.sum(wa, dim=-1)
     var_c1 = torch.clamp_min(sxx - sx * sx / sw, 1e-6)
     var_c2 = torch.clamp_min(syy - sy * sy / sw, 1e-6)
     # composed (not replaced) affine update, as in the JAX package
@@ -116,12 +128,12 @@ def _residual_pass(pose, aff_a, aff_b, pts: PointSet, frame_quad,
     good = (r * r / (cfg.max_diff_constant
                      + cfg.max_diff_grad_mult * (gxn * gxn + gyn * gyn))) < 1.0
 
-    in_count = torch.sum(m)
-    good_count = torch.sum(good & in_img)
-    bad_count = torch.sum(~good & in_img)
+    in_count = torch.sum(in_img.to(torch.float32), dim=-1)
+    good_count = torch.sum(good & in_img, dim=-1)
+    bad_count = torch.sum(~good & in_img, dim=-1)
     usage = torch.sum(torch.where(in_img, torch.clamp_max(
         z_ref / torch.where(in_img, safe_wz, torch.ones_like(safe_wz)), 1.0),
-        zero))
+        zero), dim=-1)
 
     buffers = dict(
         px=wx, py=wy, pz=torch.where(in_img, wz, torch.ones_like(wz)),
@@ -137,14 +149,15 @@ def _residual_pass(pose, aff_a, aff_b, pts: PointSet, frame_quad,
 
 def _weights_pass(pose, buffers, cfg: TrackerConfig, sigma2: float):
     """Variance-weighted Huber weights (== calcWeightsAndResidual)."""
-    t = pose[4:7]
+    t = pose[..., 4:7]
+    t0, t1, t2 = t[..., 0, None], t[..., 1, None], t[..., 2, None]
     px, py, pz = buffers["px"], buffers["py"], buffers["pz"]
     d = torch.where(buffers["mask"], buffers["d"], torch.ones_like(pz))
     r = buffers["r"]
     m = buffers["mask"].to(torch.float32)
 
-    g0 = (t[0] * pz - t[2] * px) / (pz * pz * d)
-    g1 = (t[1] * pz - t[2] * py) / (pz * pz * d)
+    g0 = (t0 * pz - t2 * px) / (pz * pz * d)
+    g1 = (t1 * pz - t2 * py) / (pz * pz * d)
     drpdd = buffers["dx"] * g0 + buffers["dy"] * g1
     s = cfg.var_weight * buffers["var"]
     w_p = 1.0 / (sigma2 + s * drpdd * drpdd)
@@ -153,8 +166,8 @@ def _weights_pass(pose, buffers, cfg: TrackerConfig, sigma2: float):
     wh = torch.where(weighted_rp < hd, torch.ones_like(r),
                      hd / torch.clamp_min(weighted_rp, 1e-9))
     weight = torch.where(buffers["mask"], wh * w_p, torch.zeros_like(r))
-    err_sum = torch.sum(weight * r * r)
-    error = err_sum / torch.clamp_min(torch.sum(m), 1.0)
+    err_sum = torch.sum(weight * r * r, dim=-1)
+    error = err_sum / torch.clamp_min(torch.sum(m, dim=-1), 1.0)
     return weight, error
 
 
@@ -170,12 +183,16 @@ def _normal_equations(buffers, weight):
     j3 = -px * py * z2 * gx - (1.0 + py * py * z2) * gy
     j4 = (1.0 + px * px * z2) * gx + px * py * z2 * gy
     j5 = -py * z * gx + px * z * gy
-    J = torch.stack([j0, j1, j2, j3, j4, j5], dim=-1).reshape(-1, 6)
-    wv = weight.reshape(-1, 1)
-    n = torch.clamp_min(torch.sum(buffers["mask"]), 1).to(torch.float32)
-    Jw = J * wv
-    A = (Jw.T @ J) / n
-    g = (Jw.T @ r.reshape(-1)) / n
+    J = torch.stack([j0, j1, j2, j3, j4, j5], dim=-1)      # (..., N, 6)
+    n = torch.clamp_min(torch.sum(buffers["mask"], dim=-1),
+                        1).to(torch.float32)
+    Jw = J * weight.unsqueeze(-1)
+    JwT = Jw.transpose(-1, -2)
+    A = (JwT @ J) / n[..., None, None]
+    if r.dim() == 1:
+        g = (JwT @ r) / n
+    else:
+        g = (JwT @ r.unsqueeze(-1)).squeeze(-1) / n[..., None]
     return A, g
 
 

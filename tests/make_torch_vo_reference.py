@@ -90,7 +90,7 @@ def check_port(ref: dict, n_frames: int = 0):
     cam = synth.default_camera(W, H)
     scene = synth.PlaneScene(seed=SCENE_SEED)
     poses = synth.orbit_trajectory(n, radius=RADIUS, fwd=FWD)
-    sys_ = SlamSystem(cam, LSDConfig(), device="cpu")
+    sys_ = SlamSystem(cam, LSDConfig(), enable_slam=False, device="cpu")
     t0 = time.time()
     for i in range(n):
         img, dep = synth.render(scene, cam, poses[i], device="cpu")

@@ -1,6 +1,6 @@
 """Module-level parity of the port against the JAX package: config, camera,
-Lie groups, interpolation (clamps included), pyramids, compaction and the
-tracking reference. Inputs come from a numpy seed; both packages see the
+Lie groups, interpolation (clamps included), the synthetic scenes and
+trajectories, pyramids, compaction and the tracking reference. Inputs come from a numpy seed; both packages see the
 same arrays. JAX functions run under jax.jit, as the JAX engine runs them.
 
 Tolerances: elementwise f32 math is compared at rtol = 1e-6 (a few ulps:
@@ -178,6 +178,54 @@ def test_synth_render_matches(rendered):
                            device="cpu")
     np.testing.assert_allclose(np_(ti), img, rtol=0, atol=2e-3)
     np.testing.assert_allclose(np_(td), dep, rtol=1e-5, atol=1e-5)
+
+
+def test_synth_trajectories_match():
+    """The loop and bench trajectories: the same numpy draws through the
+    f32 Lie ops. The loop's poses agree exactly; the bench's within one
+    ulp (1.2e-7 on unit-scale entries), because torch's and XLA's f32
+    sin/cos in `se3_exp` round 14 of its 130 tangents an ulp apart."""
+    np.testing.assert_array_equal(tsynth.loop_trajectory(36),
+                                  jsynth.loop_trajectory(36))
+    np.testing.assert_allclose(tsynth.bench_trajectory(130),
+                               jsynth.bench_trajectory(130), rtol=0,
+                               atol=1.2e-7)
+
+
+def test_bench_scene_fields_match():
+    js, ts = jsynth.BenchScene(seed=0), tsynth.BenchScene(seed=0)
+    for key in ("normals", "offsets", "freqs", "phases", "amps", "panel_c",
+                "panel_n", "panel_u", "panel_v", "panel_hu", "panel_hv",
+                "panel_phase"):
+        np.testing.assert_array_equal(np_(getattr(ts, key)),
+                                      np.asarray(getattr(js, key)),
+                                      err_msg=key)
+    assert ts.base == js.base
+
+
+@pytest.mark.parametrize("w,h,frame", [(160, 128, 0), (160, 128, 37),
+                                       (160, 128, 95), (640, 480, 64)])
+def test_bench_render_matches(w, h, frame):
+    """render_bench and render_realistic(noise_sigma=0) along
+    bench_trajectory(130): depths to 1e-5 relative; images within 4e-3
+    gray levels (f32 sin of phases up to ~500 rad differs from XLA's by a
+    few ulps of the phase). The per-frame gain, rolling exposure and bias
+    vary by 0.1-6 gray levels between these frames, the vignette by up to
+    12%, so a fault in any of them shows far above that bound."""
+    pose = jsynth.bench_trajectory(130)[frame]
+    jcam = jsynth.default_camera(w, h)
+    js, ts = jsynth.BenchScene(seed=0), tsynth.BenchScene(seed=0)
+    tcam = tsynth.default_camera(w, h)
+    ji, jd = jsynth.render_bench(js, jcam, jnp.asarray(pose))
+    ti, td = tsynth.render_bench(ts, tcam, pose, device="cpu")
+    np.testing.assert_allclose(np_(td), np.asarray(jd), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np_(ti), np.asarray(ji), rtol=0, atol=4e-3)
+    ji, jd = jsynth.render_realistic(js, jcam, jnp.asarray(pose),
+                                     frame_index=frame, noise_sigma=0.0)
+    ti, td = tsynth.render_realistic(ts, tcam, pose, frame_index=frame,
+                                     noise_sigma=0.0, device="cpu")
+    np.testing.assert_allclose(np_(td), np.asarray(jd), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np_(ti), np.asarray(ji), rtol=0, atol=4e-3)
 
 
 def test_frame_pyramid_matches(rendered):

@@ -14,6 +14,7 @@ from lsd_slam_tpu_torch import interop
 from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import LSDConfig, SystemConfig
 from lsd_slam_tpu_torch.depth.state import DepthMapState
+from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
 from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
 from lsd_slam_tpu_torch.system import SlamSystem
 from lsd_slam_tpu_torch.utils import synth
@@ -101,12 +102,15 @@ def test_slam_system_without_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["depth_state", "frame_pyramid",
                                    "depth_pyramid", "point_set",
-                                   "tracking_ref", "render"])
+                                   "tracking_ref", "render", "render_bench",
+                                   "render_realistic", "pose_graph",
+                                   "pose_graph_from_dict", "reactivation"])
 def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     """The state carried across and the synthetic renderer run on the card
     unless the caller names a device; without one they raise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     z = np.zeros((4, 4), np.float32)
+    ident = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
     calls = {
         "depth_state": lambda: interop.depth_state_from_dict(
             {f.name: z for f in dataclasses.fields(DepthMapState)}),
@@ -124,6 +128,16 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
         "render": lambda: synth.render(synth.PlaneScene(seed=0), CAM,
                                        np.array([1, 0, 0, 0, 0, 0, 0],
                                                 np.float32)),
+        "render_bench": lambda: synth.render_bench(
+            synth.BenchScene(seed=0), CAM, ident),
+        "render_realistic": lambda: synth.render_realistic(
+            synth.BenchScene(seed=0), CAM, ident, noise_sigma=0.0),
+        "pose_graph": lambda: PoseGraph(),
+        "pose_graph_from_dict": lambda: interop.pose_graph_from_dict(
+            dict(poses=[], fixed=[], e_from=[], e_to=[], e_meas_inv=[],
+                 e_info=[], e_delta=[])),
+        "reactivation": lambda: interop.reactivation_from_dict(
+            dict(idepth=z, var=z, validity=z)),
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
@@ -136,7 +150,7 @@ def test_slam_system_runs_where_asked():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_slam=True),
+    dict(cfg=CFG.replace(system=SystemConfig(use_fabmap=True))),
     dict(cfg=CFG.replace(system=SystemConfig(pipeline_lag=2))),
     dict(cfg=CFG.replace(system=SystemConfig(sequential=False))),
 ])
@@ -148,10 +162,17 @@ def test_unported_modes_raise(kw):
 
 
 def test_unported_mapping_paths_raise():
+    """The unfused queue-drain observe and the sequential=False back-end
+    raise; VO mode has no relocaliser (it returns at once, as in JAX)."""
     sys_ = SlamSystem(CAM, CFG, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sys_.update_keyframe_batch([object()])
+    from lsd_slam_tpu_torch.mapping import MappingBackend
+    threaded = SlamSystem(CAM, CFG, enable_slam=False, device="cpu")
+    threaded.cfg = CFG.replace(system=SystemConfig(sequential=False))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sys_.load_existing_keyframe(None)
+        MappingBackend(threaded)
+    vo = SlamSystem(CAM, CFG, enable_slam=False, device="cpu")
     img = np.zeros((128, 160), np.float32)
-    assert sys_._attempt_relocalization(img, 0, 0.0) is None
+    assert vo.backend is None
+    assert vo._attempt_relocalization(img, 0, 0.0) is None

@@ -43,7 +43,8 @@ def sequence():
 
 
 def _run(cam, imgs, deps, n, finalize=True):
-    sys_ = SlamSystem(cam, LSDConfig(width=W, height=H), device="cpu")
+    sys_ = SlamSystem(cam, LSDConfig(width=W, height=H), enable_slam=False,
+                      device="cpu")
     sys_.gt_depth_init(imgs[0], deps[0], frame_id=0, timestamp=0.0)
     for i in range(1, n):
         sys_.track_frame(imgs[i], i, float(i) / 30.0)
@@ -90,8 +91,8 @@ def test_vo_depth_improves_with_observations(sequence):
 
 def test_vo_random_init_converges(sequence):
     cam, imgs, _, _ = sequence
-    sys_ = SlamSystem(cam, LSDConfig(width=W, height=H), seed=3,
-                      device="cpu")
+    sys_ = SlamSystem(cam, LSDConfig(width=W, height=H), enable_slam=False,
+                      seed=3, device="cpu")
     sys_.random_init(imgs[0], 0, 0.0)
     for i in range(1, N_FRAMES):
         sys_.track_frame(imgs[i], i, float(i) / 30.0)
