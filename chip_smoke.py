@@ -55,6 +55,37 @@ prints no ok line:
                loop-closure edge: the 640x480 run's does not (see
                tests/make_torch_slam_reference.py); reference
                lsd_slam_tpu_torch/reference_data/slam_loop_160x128.json.
+  7. observe-multi — DepthMap.update_keyframe_multi (the multi-reference
+               sweep of the mapping thread) at 640x480 on BenchScene(seed=0):
+               a keyframe with its ground-truth depth and a per-pixel
+               next_min_id from a seed, K = 1, 3, 8 and 10 tracked frames
+               (10 maps as two chunks), on the card and on the CPU port
+               from the same inputs. Check (tests/test_observe_multi.py's
+               bound): every state field within 1e-5 except where an EPL
+               decision or the next_min_id dither flips, on at most
+               max(16, 1%) of the pixels, a dither flip by at most a
+               step; fused launches in every K.
+  8. SLAM pipelined — [slam]'s scenario at pipeline_lag=3 (sequential):
+               frames stay in flight, the ring is drained before the loss
+               and after the lost frame; held to
+               lsd_slam_tpu_torch/reference_data/slam_bench_640x480_lag3.json
+               as [slam] is to its reference (bounds in SLAM_RUNS). Frames
+               are not synchronised one by one; a profiler pass gives the
+               device busy share.
+  9. SLAM production — the same at pipeline_lag=3, sequential=False
+               (constraint search and PGO on worker threads), not
+               deterministic, so held to properties: tracking good, every
+               frame retired once, keyframes within 2 of the lag-3
+               reference's, n_edges >= keyframes - 1, ATE < max(2x the
+               reference's, 0.02) (tests/test_slam_e2e.py:246).
+ 10. SLAM threads — [slam-loop]'s scenario with sequential=False at lag 0
+               (the mapping thread drains tracked frames in multi-reference
+               sweeps; constraint search with the idle re-track densifier
+               and PGO on their threads), free-running: tracking good,
+               n_edges >= keyframes - 1, ATE < 0.03
+               (tests/test_slam_e2e.py:134).
+A worker thread's failure is re-raised by the engine (WorkerError), so it
+fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
 
     python3 chip_smoke.py --baseline-cu OLD.cu
@@ -63,6 +94,13 @@ also builds OLD.cu (an earlier version of csrc/regularize_stencil.cu with
 the same `lsd_regularize_accumulators` entry, e.g. from `git show`) and
 times it against the current kernel in turns (old, new, new, old),
 L2-warm and cold.
+
+    python3 chip_smoke.py --pipeline-turns
+
+runs only the build and `[slam-pipelined]`'s sequence at pipeline_lag 0
+and 3 in turns (0, 3, 3, 0), sequential, no per-frame synchronisation,
+and prints each run's frames per second, stage medians and syncs: what
+the pipelined ring hides on one sequence, one card, one call.
 
 Needs CUDA and the port's package beside it: without either it exits 2
 before printing any result.
@@ -82,6 +120,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -98,6 +137,11 @@ TRAJ_BOUND = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
+# The lag-3 bench (N = 100): rounding variants of its JAX reference (the
+# port with 8, 3 and 4 threads + 1e-6 image noise, JAX + noise) lie up to
+# 6.15e-3 / 3.80e-3 rad from it and keep its graph; about twice that
+PIPE_C, PIPE_R = 1.25e-2, 8e-3
+
 # The SLAM runs: (stored JAX reference, per-frame bound of the card's
 # trajectory against it for the camera centre in scene units, for the
 # rotation in rad). TRAJ_BOUND is below what the reference itself
@@ -112,10 +156,26 @@ F32_FLOP_PER_S = 67e12
 SLAM_RUNS = {
     "slam": ("slam_bench_640x480.json", 1e-2, 5e-3),
     "slam-loop": ("slam_loop_160x128.json", 6e-3, 2.5e-3),
+    "slam-pipelined": ("slam_bench_640x480_lag3.json", PIPE_C, PIPE_R),
 }
 # ... and the bound of the card's ATE (raw and after PGO) as a multiple of
 # the reference's: the same runs reach 1.05x on the bench, 1.16x on the loop
 SLAM_ATE_RATIO = 1.5
+# The free-running threaded runs: (the lag-3 or loop reference whose
+# sequence they run, the ATE floor: production mode is held to
+# max(2 x the reference's, 0.02), tests/test_slam_e2e.py:246; the
+# threaded loop to 0.03, tests/test_slam_e2e.py:134; keyframe settings
+# over the reference's: the loop's idle re-track densifier starts at 3
+# keyframes, as in tests/test_slam_e2e.py:107-110, not 10)
+THREADED_RUNS = {
+    "slam-production": ("slam_bench_640x480_lag3.json", 0.02, {}),
+    "slam-threads": ("slam_loop_160x128.json", 0.03,
+                     dict(retrack_min_keyframes=3)),
+}
+# the multi-reference sweep, card against the CPU port: every state field
+# within 1e-5 but on the pixels whose EPL decision or dither flips, at
+# most max(16, 1%) of them (tests/test_observe_multi.py:75-85)
+MULTI_BOUND = 1e-5
 
 STENCIL_RTOL = STENCIL_ATOL = 1e-6  # tests/test_pallas_stencil.py:36-38
 
@@ -386,12 +446,28 @@ def trace_device(torch, tag, run, n_tracked, top):
 
 SLAM_COUNTERS = ("keyframes_created", "keyframes_reactivated", "relocalized",
                  "relocalization_rejected")
+SYNC_KEYS = ("host_syncs", "lm_syncs", "export_syncs", "switch_syncs",
+             "quick_syncs", "sim3_syncs", "backend_pulls", "map_pulls")
 
 
-def run_slam(torch, ref):
-    """The SLAM scenario of a stored reference on the card. Returns (the
-    system, gt poses, per-frame ms of frames 1..N-1, switch flags, the
-    frame the relocaliser recovered at, finalize ms, total s)."""
+def load_ref(name):
+    with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
+                           name)) as f:
+        return json.load(f)
+
+
+def run_slam(torch, ref, sequential=True, sync_each=True):
+    """The SLAM scenario of a stored reference on the card, at the
+    reference's pipeline lag. Returns a namespace: the system `sys`, gt
+    `poses`, `fms` (per-frame ms of frames 1..N-1), `sw` (switch flags),
+    `recovered` (the frame the relocaliser recovered at), `fin_ms`
+    (finalize), `track_s` (frames 1..N-1 with the ring drained) and
+    `total_s`. With sync_each the card is synchronised
+    after every frame (frame ms is then device-inclusive); without it a
+    frame's ms is its track_frame call, and the pipelined ring keeps work
+    in flight across calls. The ring is drained before the manual loss and
+    after the lost frame (a no-op at lag 0 in sequential mode), as
+    tests/make_torch_slam_reference.py does."""
     from lsd_slam_tpu_torch.config import LSDConfig
     from lsd_slam_tpu_torch.system import SlamSystem
     from lsd_slam_tpu_torch.utils import synth
@@ -410,8 +486,11 @@ def run_slam(torch, ref):
         frames = [synth.render(scene, cam, poses[i], device="cuda")
                   for i in range(n)]
     cfg = LSDConfig(width=ref["width"], height=ref["height"])
-    cfg = cfg.replace(keyframe=dataclasses.replace(cfg.keyframe,
-                                                   **ref["keyframe_config"]))
+    cfg = cfg.replace(
+        keyframe=dataclasses.replace(cfg.keyframe, **ref["keyframe_config"]),
+        system=dataclasses.replace(
+            cfg.system, pipeline_lag=ref.get("pipeline_lag", 0),
+            sequential=sequential))
     sys_ = SlamSystem(cam, cfg)  # SLAM on, on the card
     assert sys_.device.type == "cuda" and sys_.backend is not None
     torch.cuda.synchronize()
@@ -422,13 +501,18 @@ def run_slam(torch, ref):
     for i in range(1, n):
         t0 = time.perf_counter()
         sys_.track_frame(frames[i][0], i, i / 30.0)
-        torch.cuda.synchronize()
+        if sync_each:
+            torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         switched.append(sys_.current_keyframe.id != kf_id)
         kf_id = sys_.current_keyframe.id
+    sys_.block_until_mapped()
+    torch.cuda.synchronize()
+    track_s = time.perf_counter() - t_all
     assert sys_.tracking_is_good, "SLAM tracking lost before the manual loss"
     sys_.manual_tracking_loss = True
     sys_.track_frame(frames[n - 1][0], n, n / 30.0)
+    sys_.block_until_mapped()
     recovered = None
     for j, i in enumerate(range(n - 2, n // 2, -1)):
         sys_.track_frame(frames[i][0], n + 1 + j, (n + 1 + j) / 30.0)
@@ -439,42 +523,88 @@ def run_slam(torch, ref):
     sys_.finalize()
     torch.cuda.synchronize()
     fin_ms = (time.perf_counter() - t0) * 1e3
-    return (sys_, poses, np.asarray(frame_ms), np.asarray(switched),
-            recovered, fin_ms, time.perf_counter() - t_all)
+    return types.SimpleNamespace(
+        sys=sys_, poses=poses, fms=np.asarray(frame_ms),
+        sw=np.asarray(switched), recovered=recovered, fin_ms=fin_ms,
+        track_s=track_s, total_s=time.perf_counter() - t_all)
 
 
-def slam_phase(torch, stencil, counted_plain, tag, trace):
-    """Phase 5 (`tag` "slam") or 6 ("slam-loop"): the run of SLAM_RUNS[tag]
-    against its stored reference, then, if `trace`, a second pass under
-    torch.profiler. Returns (fused launches on the path, the final state's
-    planes for the kernel check, the busy share or None)."""
-    from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
-
-    ref_file, traj_bound, rot_bound = SLAM_RUNS[tag]
-    with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
-                           ref_file)) as f:
-        ref = json.load(f)
-    n = ref["n_frames"]
-    with counted_plain() as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
-        sys_, poses, fms, sw, recovered, fin_ms, total_s = run_slam(torch,
-                                                                    ref)
-        fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
-    st = sys_.stats.snapshot()
-    graph = sys_.backend.graph
+def graph_of(sys_):
+    """(keyframe ids, parents, edge pairs, loop-closure edges): a loop
+    closure is an edge of which neither keyframe was tracked on the
+    other."""
     kfs = [kf.id for kf in sys_.keyframes]
     parents = [-1 if kf.pose.parent is None else kf.pose.parent.frame_id
                for kf in sys_.keyframes]
-    edges = [[e.first.id, e.second.id] for e in graph.edges]
-    # loop closures: edges of which neither keyframe was tracked on the other
+    edges = [[e.first.id, e.second.id] for e in sys_.backend.graph.edges]
     parent_of = dict(zip(kfs, parents))
     loops = [[a, b] for a, b in edges
              if parent_of.get(a) != b and parent_of.get(b) != a]
+    return kfs, parents, edges, loops
+
+
+def log_run(tag, run, n, fused, acc, plain):
+    """The timing, sync and launch lines every SLAM phase prints."""
+    sys_, fms, sw = run.sys, run.fms, run.sw
+    st = sys_.stats.snapshot()
+    n_new = max(int(st.get("sim3_stage0_n", 0)), 1)
+    search_ms = sum(st.get(f"sim3_stage{k}_ms", 0.0) for k in range(3))
+    syncs = sum(st.get(k, 0) for k in SYNC_KEYS)
+    n_frames_run = len(sys_.all_frame_poses) + 1   # + the lost frame
+    log(f"[{tag}] frame p50 {np.percentile(fms, 50):.3f} ms, p95 "
+        f"{np.percentile(fms, 95):.3f} ms over frames 1..{n - 1}; "
+        f"frames 1..{n - 1} in {run.track_s:.2f} s wall "
+        f"({(n - 1) / run.track_s:.3f} fps, ring drained); "
+        f"keyframe-switch frames {int(sw.sum())}, median "
+        f"{np.median(fms[sw]) if sw.any() else float('nan'):.1f} ms, max "
+        f"{fms[sw].max() if sw.any() else float('nan'):.1f} ms; total "
+        f"{run.total_s:.2f} s")
+    log(f"[{tag}] constraint search {search_ms / n_new:.1f} ms per new "
+        f"keyframe over {n_new} (stages (4,3) {st.get('sim3_stage0_ms', 0):.1f}"
+        f", (2,2) {st.get('sim3_stage1_ms', 0):.1f}, (1,1) "
+        f"{st.get('sim3_stage2_ms', 0):.1f} ms in all); PGO "
+        f"{st.get('pgo_ms', 0.0):.1f} ms over {int(st.get('pgo_calls', 0))} "
+        f"solves, finalize {run.fin_ms:.1f} ms")
+    log(f"[{tag}] host syncs per frame {syncs / n_frames_run:.2f} (pack "
+        f"pulls {st.get('host_syncs', 0):.0f}, SE3 LM flags "
+        f"{st.get('lm_syncs', 0):.0f}, quick LM flags "
+        f"{st.get('quick_syncs', 0):.0f}, Sim3 LM flags "
+        f"{st.get('sim3_syncs', 0):.0f}, back-end pulls "
+        f"{st.get('backend_pulls', 0):.0f}, exports "
+        f"{st.get('export_syncs', 0):.0f}, switch rescales "
+        f"{st.get('switch_syncs', 0):.0f}, mapping stats pulls "
+        f"{st.get('map_pulls', 0):.0f}) over {n_frames_run} frames")
+    log(f"[{tag}] stage ms (dispatch windows): {sys_.timers.summary()}")
+    log(f"[{tag}] regularize_fused launches {fused}, regularize_accumulators "
+        f"launches {acc}, plain-version calls {plain}")
+    return st
+
+
+def slam_phase(torch, stencil, counted_plain, tag, trace):
+    """Phase 5 ("slam"), 6 ("slam-loop") or 8 ("slam-pipelined"): the run
+    of SLAM_RUNS[tag] against its stored reference, then, if `trace`, a
+    second pass under torch.profiler. Returns (fused launches on the path,
+    the final state's planes for the kernel check, the busy share or
+    None)."""
+    from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
+
+    ref_file, traj_bound, rot_bound = SLAM_RUNS[tag]
+    ref = load_ref(ref_file)
+    n = ref["n_frames"]
+    sync_each = ref.get("pipeline_lag", 0) == 0
+    with counted_plain() as plain_calls:
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        run = run_slam(torch, ref, sync_each=sync_each)
+        fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
+    sys_, poses, recovered = run.sys, run.poses, run.recovered
+    kfs, parents, edges, loops = graph_of(sys_)
+    st = sys_.stats.snapshot()
     counters = {k: int(st.get(k, 0)) for k in SLAM_COUNTERS}
     traj, opt = sys_.trajectory_array(), sys_.optimized_trajectory_array()
     ate = float(ate_rmse(traj[:n], poses))
     ate_opt = float(ate_rmse(opt[:n], poses))
-    log(f"[{tag}] N={n} {ref['width']}x{ref['height']} keyframes={kfs} "
+    log(f"[{tag}] N={n} {ref['width']}x{ref['height']} pipeline_lag="
+        f"{ref.get('pipeline_lag', 0)} keyframes={kfs} "
         f"(reference {ref['keyframe_ids']})")
     log(f"[{tag}] parents {parents} (reference {ref['parent_ids']}); "
         f"loop-closure edges {loops} (reference {ref['nonparent_edges']})")
@@ -496,35 +626,7 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
         log(f"[{tag}] {key}: max |centre - ref| {dc.max():.4g} (frame "
             f"{int(dc.argmax())}), max rot diff {da.max():.4g} rad; bounds "
             f"{traj_bound:g} / {rot_bound:g}")
-    n_new = max(int(st.get("sim3_stage0_n", 0)), 1)
-    search_ms = sum(st.get(f"sim3_stage{k}_ms", 0.0) for k in range(3))
-    syncs = sum(st.get(k, 0) for k in (
-        "host_syncs", "lm_syncs", "export_syncs", "switch_syncs",
-        "quick_syncs", "sim3_syncs", "backend_pulls"))
-    n_frames_run = len(sys_.all_frame_poses) + 1   # + the lost frame
-    log(f"[{tag}] frame p50 {np.percentile(fms, 50):.3f} ms, p95 "
-        f"{np.percentile(fms, 95):.3f} ms over frames 1..{n - 1}; "
-        f"keyframe-switch frames {int(sw.sum())}, median "
-        f"{np.median(fms[sw]) if sw.any() else float('nan'):.1f} ms, max "
-        f"{fms[sw].max() if sw.any() else float('nan'):.1f} ms; total "
-        f"{total_s:.2f} s")
-    log(f"[{tag}] constraint search {search_ms / n_new:.1f} ms per new "
-        f"keyframe over {n_new} (stages (4,3) {st.get('sim3_stage0_ms', 0):.1f}"
-        f", (2,2) {st.get('sim3_stage1_ms', 0):.1f}, (1,1) "
-        f"{st.get('sim3_stage2_ms', 0):.1f} ms in all); PGO "
-        f"{st.get('pgo_ms', 0.0):.1f} ms over {int(st.get('pgo_calls', 0))} "
-        f"solves, finalize {fin_ms:.1f} ms")
-    log(f"[{tag}] host syncs per frame {syncs / n_frames_run:.2f} (pack "
-        f"pulls {st.get('host_syncs', 0):.0f}, SE3 LM flags "
-        f"{st.get('lm_syncs', 0):.0f}, quick LM flags "
-        f"{st.get('quick_syncs', 0):.0f}, Sim3 LM flags "
-        f"{st.get('sim3_syncs', 0):.0f}, back-end pulls "
-        f"{st.get('backend_pulls', 0):.0f}, exports "
-        f"{st.get('export_syncs', 0):.0f}, switch rescales "
-        f"{st.get('switch_syncs', 0):.0f}) over {n_frames_run} frames")
-    log(f"[{tag}] stage ms (dispatch windows): {sys_.timers.summary()}")
-    log(f"[{tag}] regularize_fused launches {fused}, regularize_accumulators "
-        f"launches {acc}, plain-version calls {plain_calls[0]}")
+    log_run(tag, run, n, fused, acc, plain_calls[0])
     assert kfs == ref["keyframe_ids"], (kfs, ref["keyframe_ids"])
     assert parents == ref["parent_ids"], (parents, ref["parent_ids"])
     assert edges == ref["edges"], "edge pairs differ from the reference"
@@ -543,11 +645,167 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
         fused, acc, plain_calls)
     share = None
     if trace:
-        share = trace_device(torch, f"{tag}-trace",
-                             lambda: run_slam(torch, ref)[-1], n - 1, 12)
+        share = trace_device(
+            torch, f"{tag}-trace",
+            lambda: run_slam(torch, ref, sync_each=sync_each).total_s, n - 1,
+            12)
     s = sys_.map.state
     return fused, [s.idepth, s.var, s.valid, s.validity, s.idepth_smoothed,
                    s.var_smoothed, s.blacklisted], share
+
+
+def threaded_phase(torch, stencil, counted_plain, tag):
+    """Phase 9 ("slam-production": the lag-3 bench, sequential=False) or
+    10 ("slam-threads": the 160x128 loop, sequential=False, lag 0),
+    free-running and so held to properties, not to a stored trajectory.
+    Returns the fused launches on the path."""
+    from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
+
+    ref_file, ate_floor, keyframe = THREADED_RUNS[tag]
+    ref = load_ref(ref_file)
+    ref["keyframe_config"] = dict(ref["keyframe_config"], **keyframe)
+    n = ref["n_frames"]
+    with counted_plain() as plain_calls:
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        run = run_slam(torch, ref, sequential=False, sync_each=False)
+        fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
+    sys_, poses, recovered = run.sys, run.poses, run.recovered
+    kfs, parents, edges, loops = graph_of(sys_)
+    n_edges = sys_.backend.graph.pose_graph.n_edges
+    traj = sys_.trajectory_array()
+    ate = float(ate_rmse(traj[:n], poses))
+    frame_ids = [f for _, f, _ in sys_.trajectory]
+    expect_ids = list(range(n)) + ([n + 1 + (n - 2 - recovered)]
+                                   if recovered is not None else [])
+    ate_bound = (max(2.0 * ref["ate"], ate_floor) if tag == "slam-production"
+                 else ate_floor)
+    st = log_run(tag, run, n, fused, acc, plain_calls[0])
+    mt = sys_.mapping_thread
+    log(f"[{tag}] N={n} {ref['width']}x{ref['height']} sequential=False "
+        f"pipeline_lag={sys_._lag}: keyframes {kfs} (lag-{sys_._lag} "
+        f"reference run, sequential: {ref['keyframe_ids']}), parents "
+        f"{parents}, {n_edges} edges, loop-closure edges {loops}, "
+        f"recovered at {recovered}")
+    log(f"[{tag}] ATE {ate:.6g} (bound {ate_bound:.6g}); mapping batches "
+        f"{st.get('mapping_batches', 0):.0f}, mapping_batch_max "
+        f"{st.get('mapping_batch_max', 0):.0f}, frames consumed "
+        f"{st.get('mapping_frames_consumed', 0):.0f}, dropped for a wrong "
+        f"parent {st.get('mapping_dropped_wrong_parent', 0):.0f}, queue "
+        f"dropped {mt.queue.dropped if mt is not None else 'n/a'}; "
+        f"constraint searches {st.get('constraint_searches', 0):.0f}, "
+        f"retrack_attempts {st.get('retrack_attempts', 0):.0f} (found "
+        f"{st.get('retrack_constraints_found', 0):.0f}), PGO solves "
+        f"{st.get('pgo_calls', 0):.0f}")
+    assert sys_.tracking_is_good, f"{tag} ends lost"
+    assert frame_ids == expect_ids, "a frame was not retired exactly once"
+    assert n_edges >= len(kfs) - 1, (n_edges, kfs)
+    assert ate < ate_bound, (ate, ate_bound)
+    if tag == "slam-production":
+        assert abs(len(kfs) - len(ref["keyframe_ids"])) <= 2, (
+            kfs, ref["keyframe_ids"])
+    assert not any(w.alive() for w in sys_.workers()), "a worker outlived " \
+        "finalize"
+    assert fused > 0 and acc == 0 and plain_calls[0] == 0, (
+        fused, acc, plain_calls)
+    return fused
+
+
+def observe_multi_phase(torch, stencil, counted_plain, reg_bound):
+    """Phase 7: DepthMap.update_keyframe_multi at 640x480 on the card and on
+    the CPU port from the same inputs, K = 1, 3, 8, 10. Returns (fused
+    launches on the card, the max abs error of the state fields off the
+    flipped pixels, the most pixels flipped in one K)."""
+    from lsd_slam_tpu_torch.config import LSDConfig
+    from lsd_slam_tpu_torch.depth.depth_map import DepthMap
+    from lsd_slam_tpu_torch.frames import build_frame
+    from lsd_slam_tpu_torch.lie import np_sim3 as nps
+    from lsd_slam_tpu_torch.utils import synth
+
+    w, h, n_frames = 640, 480, 130
+    cam = synth.default_camera(w, h)
+    cfg = LSDConfig(width=w, height=h)
+    scene = synth.BenchScene(seed=0)
+    poses = synth.bench_trajectory(n_frames)
+    rng = np.random.default_rng(0)
+    renders = [synth.render_realistic(scene, cam, poses[i], frame_index=i,
+                                      noise_sigma=0.0, device="cuda")
+               for i in range(11)]
+    kf_img, kf_dep = renders[0]
+    gt = torch.where(kf_dep > 0, 1.0 / torch.clamp_min(kf_dep, 1e-6),
+                     torch.zeros_like(kf_dep))
+    # frame k's ref->keyframe pose (gt poses are world->camera)
+    r2k = [nps.se3_mul(poses[0].astype(np.float64),
+                       nps.se3_inverse(poses[k].astype(np.float64)))
+           for k in range(11)]
+    nmi = rng.integers(0, 17, (h, w)).astype(np.float32)
+    gms = [rng.uniform(size=(h // 2, w // 2)) < 0.9 for _ in range(11)]
+    res = [float(x) for x in rng.uniform(0.5, 2.0, 11)]
+
+    def run(dev, k):
+        pyr = build_frame(kf_img.to(dev), 5)
+        dm = DepthMap(cam, cfg, dev)
+        dm.initialize_from_gt(gt.to(dev), pyr.max_grad[0])
+        dm.state = dm.state.replace(next_min_id=torch.as_tensor(nmi,
+                                                                device=dev))
+        frames = range(1, k + 1)
+        t0 = time.perf_counter()
+        stats = dm.update_keyframe_multi(
+            pyr, [renders[i][0].to(dev) for i in frames],
+            [r2k[i] for i in frames], [float(4 + i) for i in frames],
+            [torch.as_tensor(gms[i], device=dev) for i in frames],
+            [res[i] for i in frames])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return dm, stats, ms
+
+    launches, worst_err, worst_flips = 0, 0.0, 0
+    fields = ("valid", "idepth", "var", "validity", "blacklisted",
+              "idepth_smoothed", "var_smoothed")
+    for k in (1, 3, 8, 10):
+        with counted_plain() as plain_calls:
+            stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+            dm, stats, ms = run("cuda", k)
+            fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
+        assert fused > 0 and acc == 0 and plain_calls[0] == 0, (
+            k, fused, acc, plain_calls)
+        launches += fused
+        warm_ms = run("cuda", k)[2]
+        cpu_dm, cpu_stats, cpu_ms = run("cpu", k)
+        # an EPL decision that flips (a best step, an update's success)
+        # moves every field of its pixel; elsewhere the fields agree
+        decided = np.zeros((h, w), bool)
+        diffs = {}
+        for f in fields:
+            a = getattr(dm.state, f).cpu().numpy().astype(np.float64)
+            b = getattr(cpu_dm.state, f).numpy().astype(np.float64)
+            diffs[f] = np.abs(a - b)
+            decided |= diffs[f] > (0 if f in ("valid", "blacklisted")
+                                   else reg_bound)
+        err = max(float(d[~decided].max(initial=0.0))
+                  for d in diffs.values())
+        per_field = ", ".join(
+            f"{f} {float(d.max()):.3g} ({int((d > reg_bound).sum())} px)"
+            for f, d in diffs.items())
+        a = dm.state.next_min_id.cpu().numpy()
+        b = cpu_dm.state.next_min_id.numpy()
+        dither = (a != b) & ~decided
+        flips = int((decided | dither).sum())
+        step = float(np.abs(a - b)[dither].max(initial=0.0))
+        upd = float(stats["updated"])
+        log(f"[observe-multi] K={k} ({-(-k // 8)} chunk(s)): card "
+            f"{ms:.2f} ms (first call), {warm_ms:.2f} ms (second), CPU port "
+            f"{cpu_ms:.1f} ms; updated {upd:.0f} (CPU "
+            f"{float(cpu_stats['updated']):.0f}); EPL decisions flipped at "
+            f"{int(decided.sum())} pixels, the next_min_id dither alone at "
+            f"{int(dither.sum())} (by <= {step:g}); max abs err elsewhere "
+            f"{err:.3g}; regularize_fused launches {fused}")
+        log(f"[observe-multi] K={k} max abs diff per field (pixels over "
+            f"{reg_bound:g}): {per_field}")
+        assert upd > 1000, upd
+        assert flips <= max(16, 0.01 * h * w) and step <= 10.0, (flips, step)
+        worst_err, worst_flips = max(worst_err, err), max(worst_flips, flips)
+    return launches, worst_err, worst_flips
 
 
 def check_kernels(torch, stencil, reg_dist_var, diff_facs, validity_th):
@@ -653,10 +911,33 @@ def bound(bytes_per_px, flops_per_px, h=480, w=640):
                                  else "operations")
 
 
+def pipeline_turns(torch, card):
+    """The lag-3 bench sequence at lag 0 and lag 3 in turns (0, 3, 3, 0):
+    frames per second over frames 1..N-1 (ring drained), the frame step's
+    and the tracker's median dispatch ms, the pack pull's, syncs per
+    frame."""
+    ref = load_ref(SLAM_RUNS["slam-pipelined"][0])
+    n = ref["n_frames"]
+    for lag in (0, 3, 3, 0):
+        run = run_slam(torch, dict(ref, pipeline_lag=lag), sync_each=False)
+        st, tm = run.sys.stats.snapshot(), run.sys.timers
+        syncs = sum(st.get(k, 0) for k in SYNC_KEYS)
+        log(f"[pipeline-turns] lag {lag}: frames 1..{n - 1} in "
+            f"{run.track_s:.3f} s ({(n - 1) / run.track_s:.3f} fps); "
+            f"medians frame_step {tm.median('frame_step'):.1f} ms, track "
+            f"{tm.median('track'):.1f}, observe {tm.median('observe'):.1f}, "
+            f"retire_pull {tm.median('retire_pull'):.2f}, switch "
+            f"{tm.median('switch'):.1f}; keyframes "
+            f"{[kf.id for kf in run.sys.keyframes]}; syncs per frame "
+            f"{syncs / (len(run.sys.all_frame_poses) + 1):.2f}; {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu",
                     help="an earlier stencil source to time against")
+    ap.add_argument("--pipeline-turns", action="store_true",
+                    help="only time lag 0 against lag 3, in turns")
     args = ap.parse_args()
     import torch
 
@@ -691,6 +972,9 @@ def main() -> int:
         extra["baseline"] = os.path.abspath(args.baseline_cu)
     secs = build.build(verbose=True, sources=extra)
     log(f"[build] {json.dumps(secs)} total {time.perf_counter() - t0:.2f} s")
+    if args.pipeline_turns:
+        pipeline_turns(torch, card)
+        return 0
     baseline = None
     if extra:
         lib = build.library_path("baseline", extra["baseline"])
@@ -822,16 +1106,49 @@ def main() -> int:
 
     phase_done("SLAM loop")
 
+    # ---- 7. the multi-reference sweep, card against the CPU port ----
+    multi_fused, multi_err, multi_flips = observe_multi_phase(
+        torch, stencil, functools.partial(counted_plain, stencil),
+        MULTI_BOUND)
+    phase_done("observe-multi")
+
+    # ---- 8. pipelined SLAM (lag 3), against its JAX reference ----
+    log(f"[slam-pipelined] card: {card}")
+    pipe_fused, _, pipe_share = slam_phase(
+        torch, stencil, functools.partial(counted_plain, stencil),
+        "slam-pipelined", trace=True)
+    phase_done("SLAM pipelined")
+
+    # ---- 9. and 10. the threaded modes, held to properties ----
+    prod_fused = threaded_phase(torch, stencil,
+                                functools.partial(counted_plain, stencil),
+                                "slam-production")
+    phase_done("SLAM production")
+    threads_fused = threaded_phase(torch, stencil,
+                                   functools.partial(counted_plain, stencil),
+                                   "slam-threads")
+    phase_done("SLAM threads")
+
     common = dict(route="cuda",
                   source="lsd_slam_tpu_torch/csrc/regularize_stencil.cu",
                   replaces="lsd_slam_tpu/ops/pallas_stencil.py:94",
                   library_ms=None)
     log(json.dumps({"kernels": [
         dict(name="regularize_fused", **common,
-             launches=fused_launches + slam_fused + loop_fused,
+             launches=(fused_launches + slam_fused + loop_fused
+                       + multi_fused + pipe_fused + prod_fused
+                       + threads_fused),
              vo_launches=fused_launches, slam_launches=slam_fused,
              slam_loop_launches=loop_fused,
-             slam_busy_share=busy_share, max_abs_err=err_fused,
+             observe_multi_launches=multi_fused,
+             slam_pipelined_launches=pipe_fused,
+             slam_production_launches=prod_fused,
+             slam_threads_launches=threads_fused,
+             slam_busy_share=busy_share,
+             slam_pipelined_busy_share=pipe_share,
+             observe_multi_max_abs_err=multi_err,
+             observe_multi_dither_flips=multi_flips,
+             max_abs_err=err_fused,
              ms=t["fused_warm"], kernel_ms=t["fused_warm"],
              cold_ms=t["fused_cold"], plain_ms=t["fused_plain"],
              bound_ms=fused_bound, bound_by=fused_by,

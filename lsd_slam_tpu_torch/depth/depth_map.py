@@ -3,20 +3,28 @@
 Port of lsd_slam_tpu/depth/depth_map.py (DepthMap.h:53-84). The JAX
 package's jitted programs become plain functions on DepthMapState:
 `observe_program` (observe + fill holes + regularize + export, one per
-tracked frame), `create_kf_program` (propagate, regularize, fill holes,
-regularize, renormalize), `finalize_program`, `set_from_existing_program`
-(keyframe re-activation), `init_random`, `init_gt` and `export_arrays`.
+tracked frame), `observe_multi_program` (the same over a queue of tracked
+frames, one multi-reference sweep per chunk of at most
+`MULTI_REF_BUCKETS[-1]` frames), `create_kf_program` (propagate,
+regularize, fill holes, regularize, renormalize), `finalize_program`,
+`set_from_existing_program` (keyframe re-activation), `init_random`,
+`init_gt` and `export_arrays`.
 The static observe budget buckets are kept: the budget decides which
 pixels a sweep truncates, so it must match.
 
-Not ported yet: the multi-reference `observe_multi` sweep (ROADMAP Queue 1
-item 1), which the sequential engine never reaches.
+The JAX package pads a queue chunk to its bucket size (4 or 8) by
+replicating the newest frame, so that XLA compiles two programs. The port
+does not pad: a replica of the newest frame is never selected (its id
+equals the newest's, and selection takes the first qualifying frame), so
+the result is the same (tests/test_torch_observe_multi.py holds the port's
+unpadded chunks to the JAX package's padded ones).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from lsd_slam_tpu_torch.camera import Camera
@@ -50,13 +58,18 @@ def pick_observe_budget(h: int, w: int, last_active) -> int:
     return buckets[-1]
 
 
+# queue-drain sweep sizes of the JAX package; a longer queue maps in
+# chunks of the largest, which changes results, so the chunking is kept
+MULTI_REF_BUCKETS = (4, 8)
+
+
 def upsample_mask(small: torch.Tensor, cfg: LSDConfig) -> torch.Tensor:
     """Tracker good-mask (min level) -> full resolution ((x >> lvl)
     indexing, DepthMap.cpp:322-329)."""
-    if tuple(small.shape) == (cfg.height, cfg.width):
+    if tuple(small.shape[-2:]) == (cfg.height, cfg.width):
         return small
     f = 1 << cfg.tracker.min_level
-    return small.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1)
+    return small.repeat_interleave(f, dim=-2).repeat_interleave(f, dim=-1)
 
 
 def export_arrays(state: DepthMapState):
@@ -84,6 +97,26 @@ def observe_program(state, kf_img, kf_gx, kf_gy, kf_max_grad, ref_img,
     state, stats = observe_mod.observe(
         state, kf_img, kf_gx, kf_gy, kf_max_grad, ref_img, ref_to_kf,
         ref_id, upsample_mask(good_mask, cfg), tracking_residual,
+        skip_inc, cam, dcfg, mcfg, point_budget=point_budget)
+    state = reg_mod.fill_holes(state, kf_max_grad, dcfg, mcfg.min_use_grad)
+    state = reg_mod.regularize(state, False, dcfg.val_sum_min_for_keep,
+                               dcfg, mcfg.depth_smoothing_factor)
+    return state, stats, export_arrays(state)
+
+
+def observe_multi_program(state, kf_img, kf_gx, kf_gy, kf_max_grad,
+                          ref_stack, ref_to_kf, ref_ids, good_masks,
+                          tracking_residuals, skip_inc, cam: Camera,
+                          cfg: LSDConfig, point_budget: int = 0):
+    """The batch-drain sweep: one multi-reference observe over a queue of
+    tracked frames (DepthMap::updateKeyframe with the whole unmapped deque,
+    DepthMap.cpp:1072-1101, 302-319), then fill holes, regularize(keep) and
+    the export. good_masks is a (K, h, w) stack at the tracker's min level.
+    Returns (state, stats, export)."""
+    dcfg, mcfg = cfg.depth, cfg.mapping
+    state, stats = observe_mod.observe_multi(
+        state, kf_img, kf_gx, kf_gy, kf_max_grad, ref_stack, ref_to_kf,
+        ref_ids, upsample_mask(good_masks, cfg), tracking_residuals,
         skip_inc, cam, dcfg, mcfg, point_budget=point_budget)
     state = reg_mod.fill_holes(state, kf_max_grad, dcfg, mcfg.min_use_grad)
     state = reg_mod.regularize(state, False, dcfg.val_sum_min_for_keep,
@@ -303,8 +336,68 @@ class DepthMap:
         return (torch.where(s.valid, s.idepth, zero), re_var,
                 torch.where(s.valid, s.validity, zero))
 
-    def update_keyframe(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DepthMap.update_keyframe (the unfused queue-drain observe) is "
-            "not ported yet: ROADMAP Queue 1 item 1 (multi-reference "
-            "observe)")
+    def _skip_inc(self) -> float:
+        """Adaptive skip increment (DepthMap.cpp:449-452), an f32 value."""
+        return float(np.float32(max(
+            3.0, self.num_frames_tracked_on_this
+            / float(self.num_mapped_on_this + 5))))
+
+    def _f32(self, x) -> torch.Tensor:
+        if torch.is_tensor(x):
+            return x.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def update_keyframe(self, kf_pyr, ref_img, ref_to_kf, ref_id: float,
+                        good_mask, tracking_residual):
+        """One observe sweep with one tracked frame (sequential-mode
+        updateKeyframe, DepthMap.cpp:1072-1213); ref_to_kf and
+        tracking_residual are host numbers. Returns the stats dict of
+        device scalars (no host sync)."""
+        self.state, stats, export = observe_program(
+            self.state, kf_pyr.images[0], kf_pyr.gx[0], kf_pyr.gy[0],
+            kf_pyr.max_grad[0], ref_img, self._f32(ref_to_kf), ref_id,
+            good_mask, self._f32(tracking_residual), self._skip_inc(),
+            self.cam, self.cfg, point_budget=self.pick_budget())
+        self.last_active = stats["active"]  # device scalar, read lazily
+        self._fresh_export = export
+        self.num_mapped_on_this += 1
+        return stats
+
+    def update_keyframe_multi(self, kf_pyr, ref_imgs, ref_to_kfs, ref_ids,
+                              good_masks, tracking_residuals):
+        """One mapping iteration over a queue of tracked frames (the whole
+        unmappedTrackedFrames deque, SlamSystem.cpp:542-571): each pixel
+        picks its stereo partner by nextStereoFrameMinID, so one EPL sweep
+        per chunk maps every queued frame. Parallel lists in ascending id
+        order; ref_to_kfs, ref_ids and tracking_residuals are host numbers.
+        Queues longer than MULTI_REF_BUCKETS[-1] map in chunks of that
+        size, each at the full point budget. Returns a stats dict of device
+        scalars, summed over the chunks."""
+        n = len(ref_imgs)
+        assert n == len(ref_to_kfs) == len(ref_ids) == len(good_masks) \
+            == len(tracking_residuals) and n >= 1
+        if n == 1:
+            return self.update_keyframe(kf_pyr, ref_imgs[0], ref_to_kfs[0],
+                                        ref_ids[0], good_masks[0],
+                                        tracking_residuals[0])
+        total = None
+        kmax = MULTI_REF_BUCKETS[-1]
+        for lo in range(0, n, kmax):
+            chunk = slice(lo, min(lo + kmax, n))
+            self.state, stats, export = observe_multi_program(
+                self.state, kf_pyr.images[0], kf_pyr.gx[0], kf_pyr.gy[0],
+                kf_pyr.max_grad[0], torch.stack(list(ref_imgs[chunk])),
+                self._f32(np.stack([np.asarray(r, np.float64)
+                                    for r in ref_to_kfs[chunk]])),
+                [float(i) for i in ref_ids[chunk]],
+                torch.stack(list(good_masks[chunk])),
+                self._f32([float(t) for t in tracking_residuals[chunk]]),
+                self._skip_inc(), self.cam, self.cfg,
+                point_budget=observe_budget_full(*self.state.idepth.shape))
+            self.last_active = stats["active"]
+            self._fresh_export = export
+            # one frame == one mapping unit (SlamSystem.cpp:566-581)
+            self.num_mapped_on_this += chunk.stop - chunk.start
+            total = stats if total is None else {
+                key: total[key] + stats[key] for key in stats}
+        return total

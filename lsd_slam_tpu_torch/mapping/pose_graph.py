@@ -15,7 +15,7 @@ numpy f64 exactly as in the JAX package: fixed-vertex rows, LM damping,
 the `dmax > 10` guard, quaternion renormalisation at the end.
 
 Not ported yet: the matrix-free PCG path above `dense_threshold` vertices
-(ROADMAP Queue 1 item 4, sparse PGO) and the mesh / multi-host paths
+(ROADMAP Queue 1 item 4b, sparse PGO) and the mesh / multi-host paths
 (Queue 1 item 8); the port runs on one device.
 """
 
@@ -125,7 +125,7 @@ class PoseGraph:
             raise NotImplementedError(
                 f"pose graphs of more than {self.dense_threshold} vertices "
                 "take the sparse PCG solver, which is not ported yet: "
-                "ROADMAP Queue 1 item 4 (sparse PGO)")
+                "ROADMAP Queue 1 item 4b (sparse PGO)")
         dev = self.device
         f32 = torch.float32
         efrom = torch.as_tensor(np.asarray(self.e_from[:e]), device=dev)

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -34,6 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# first use may come from several threads of one process at once (the
+# engine's workers); `build` names its temp file by pid, so the build and
+# the load run under one lock
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -96,12 +101,17 @@ def build(names: Optional[Iterable[str]] = None, verbose: bool = False,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, building it first if needed."""
+    """The loaded library of one kernel, building it first if needed;
+    safe to call from several threads (one build, one load)."""
     lib = _loaded.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
     return lib

@@ -20,13 +20,15 @@ version here adds the selected term.
 
 The wrappers take the plain version only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise — they never fall back.
-`LAUNCHES` and `FUSED_LAUNCHES` count kernel launches of each entry.
+`LAUNCHES` and `FUSED_LAUNCHES` count kernel launches of each entry; the
+engine's worker threads launch too, so each count is bumped under a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 # number of times each CUDA entry was launched (reset them to count a run)
 LAUNCHES = 0
 FUSED_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 _DIV_EPS = 1e-10
 
@@ -211,7 +214,8 @@ def regularize_accumulators(idepth, var, valid_f, validity,
             *(o.data_ptr() for o in outs), h, w,
             dist_constants(reg_dist_var).ctypes.data,
             float(np.float32(diff_fac)))
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return tuple(outs)
 
 
@@ -250,5 +254,6 @@ def regularize_fused(idepth, var, valid, validity, idepth_smoothed,
             o_var.data_ptr(), h, w, dist_constants(reg_dist_var).ctypes.data,
             float(np.float32(diff_fac)), float(np.float32(validity_th)),
             int(bool(remove_occlusions)))
-    FUSED_LAUNCHES += 1
+    with _COUNT_LOCK:
+        FUSED_LAUNCHES += 1
     return o_valid, o_bl, o_id, o_var

@@ -7,10 +7,18 @@ keyframe keeps only host (numpy) copies of its level-0 image and depth;
 the pyramids and the tracking reference are rebuilt on next access.
 `sim3_ref` (the tracking reference with the Sim3 target layouts) is built
 lazily for constraint search and dropped by every depth refresh.
+
+Deferred depth (`set_depth(defer=True)`, the pipelined frame loop): the
+level-0 pair is stored and the depth pyramid and tracking reference are
+built on first access. Several threads read those properties (tracking,
+mapping, constraint search), so the build and every depth refresh hold
+the keyframe's lock: a reader never sees a half-built pair, and a refresh
+never lands in the middle of a build.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -31,6 +39,8 @@ class Keyframe:
         self._depth = None
         self._tracking_ref = None
         self._sim3_ref = None
+        self._pending_depth = None  # deferred (idepth0, ivar0, levels)
+        self._depth_lock = threading.Lock()
         # host copies (authoritative once minimized)
         self._host_image: Optional[np.ndarray] = None
         self._host_idepth: Optional[np.ndarray] = None
@@ -60,12 +70,16 @@ class Keyframe:
 
     @property
     def depth(self):
+        if self._pending_depth is not None:
+            self._materialize_depth()
         if self._depth is None and self._host_idepth is not None:
             self._restore()
         return self._depth
 
     @property
     def tracking_ref(self):
+        if self._pending_depth is not None:
+            self._materialize_depth()
         if self._tracking_ref is None:
             self._restore()
         return self._tracking_ref
@@ -87,22 +101,44 @@ class Keyframe:
     # ------------------------------------------------------------ depth
 
     def set_depth(self, idepth0, ivar0, mean_idepth: float, num_points: int,
-                  levels: int):
-        """== Frame::setDepth + buildIDepthAndIDepthVar."""
-        self._host_idepth = None
-        self._host_ivar = None
-        self._sim3_ref = None
-        self.mean_idepth = float(mean_idepth)
-        self.num_points = int(num_points)
-        self._build_depth(idepth0, ivar0, levels)
+                  levels: int, defer: bool = False):
+        """== Frame::setDepth + buildIDepthAndIDepthVar. defer=True stores
+        the level-0 pair and builds the depth pyramid / tracking reference
+        on first access: the pipelined loop refreshes depth every frame but
+        chains the tracking reference on the device, so only keyframe
+        switches and constraint search read these products."""
+        with self._depth_lock:
+            self._host_idepth = None
+            self._host_ivar = None
+            self._sim3_ref = None
+            self.mean_idepth = float(mean_idepth)
+            self.num_points = int(num_points)
+            if defer:
+                self._pending_depth = (idepth0, ivar0, levels)
+                self._depth = None
+                self._tracking_ref = None
+                return
+            self._pending_depth = None
+            self._build_depth(idepth0, ivar0, levels)
 
     def _build_depth(self, idepth0, ivar0, levels):
         from lsd_slam_tpu_torch.frames import build_depth_pyramid
         from lsd_slam_tpu_torch.tracking import make_tracking_ref
 
-        self._depth = build_depth_pyramid(idepth0, ivar0, levels)
-        self._tracking_ref = make_tracking_ref(self.pyr, self._depth,
-                                               min_level=1, with_sim3=False)
+        depth = build_depth_pyramid(idepth0, ivar0, levels)
+        ref = make_tracking_ref(self.pyr, depth, min_level=1,
+                                with_sim3=False)
+        self._depth, self._tracking_ref = depth, ref
+
+    def _materialize_depth(self):
+        """Build the deferred pair once; a reader that finds another one
+        building waits for it, then finds nothing left to do."""
+        with self._depth_lock:
+            pending = self._pending_depth
+            if pending is None:
+                return
+            self._build_depth(*pending)
+            self._pending_depth = None
 
     # ------------------------------------------------------------ memory
 
@@ -111,7 +147,12 @@ class Keyframe:
         if self._pyr is None:
             return
         self._host_image = self._pyr.images[0].cpu().numpy()
-        if self._depth is not None and self._host_idepth is None:
+        if self._pending_depth is not None:
+            idepth0, ivar0, _ = self._pending_depth
+            self._host_idepth = idepth0.cpu().numpy()
+            self._host_ivar = ivar0.cpu().numpy()
+            self._pending_depth = None
+        elif self._depth is not None and self._host_idepth is None:
             self._host_idepth = self._depth.idepth[0].cpu().numpy()
             self._host_ivar = self._depth.ivar[0].cpu().numpy()
         if self.reactivation is not None:

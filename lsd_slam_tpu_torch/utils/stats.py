@@ -1,7 +1,8 @@
 """Runtime observability: event counters + EWMA stage timings.
 
 A copy of lsd_slam_tpu/utils/stats.py whose device barrier is
-`torch.cuda.synchronize`.
+`torch.cuda.synchronize` and whose counters take a lock (the engine's
+worker threads bump them too).
 
 == RunningStats (settings.h:259-352) and the per-stage EWMA ms/Hz tracking
 sprinkled through SlamSystem/DepthMap (SURVEY.md section 5.1). Counters are
@@ -11,6 +12,7 @@ dispatch+block windows.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -22,21 +24,26 @@ class RunningStats:
 
     def __init__(self):
         self.counters: Dict[str, float] = defaultdict(float)
+        self._lock = threading.Lock()
 
     def add(self, prefix: str, stats: dict):
-        for k, v in stats.items():
-            self.counters[f"{prefix}_{k}"] += float(v)
+        with self._lock:
+            for k, v in stats.items():
+                self.counters[f"{prefix}_{k}"] += float(v)
 
     def bump(self, key: str, n: float = 1):
-        self.counters[key] += n
+        with self._lock:
+            self.counters[key] += n
 
     def high_water(self, key: str, value: float):
         """Keep the maximum seen (queue depths, batch sizes)."""
-        if value > self.counters[key]:
-            self.counters[key] = value
+        with self._lock:
+            if value > self.counters[key]:
+                self.counters[key] = value
 
     def snapshot(self) -> Dict[str, float]:
-        return dict(self.counters)
+        with self._lock:
+            return dict(self.counters)
 
     def reset(self):
         self.counters.clear()

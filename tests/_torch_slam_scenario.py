@@ -1,13 +1,16 @@
 """The SLAM scenario of tests/test_torch_slam.py, run by one engine in a
 fresh process.
 
-    python tests/_torch_slam_scenario.py ENGINE IN.npz OUT.npz
+    python tests/_torch_slam_scenario.py ENGINE IN.npz OUT.npz [LAG]
 
 ENGINE is `jax` (the reference engine) or `port`; IN.npz holds the
 rendered sequence (`imgs`, `deps`) and the camera (`cam`: fx, fy, cx, cy);
-OUT.npz receives what the tests read (see `summary`). The scenario:
-gt-depth init, N-1 tracked frames, a manual tracking loss, the return leg
-fed backwards until the relocaliser recovers, finalize.
+OUT.npz receives what the tests read (see `summary`); LAG is the engine's
+`pipeline_lag` (default 0). The scenario: gt-depth init, N-1 tracked
+frames, a manual tracking loss, the return leg fed backwards until the
+relocaliser recovers, finalize. At lag > 0 the ring is drained
+(`block_until_mapped`) before the loss and after the lost frame, so the
+same frames are retired as at lag 0 (a no-op there).
 
 Why a fresh process: the scenario turns rounding differences of a few
 ulps into trajectory differences of ~1e-3, the parity bound, and inside a
@@ -38,9 +41,11 @@ def scenario(sys_, imgs, deps):
     sys_.gt_depth_init(imgs[0], deps[0], 0, 0.0)
     for i in range(1, N):
         sys_.track_frame(imgs[i], i, i / 30.0)
+    sys_.block_until_mapped()
     good_before = sys_.tracking_is_good
     sys_.manual_tracking_loss = True
     sys_.track_frame(imgs[N - 1], N, N / 30.0)
+    sys_.block_until_mapped()
     assert not sys_.tracking_is_good
     recovered = -1
     for j, i in enumerate(range(N - 2, N // 2, -1)):
@@ -78,38 +83,41 @@ def summary(sys_, counters, recovered, good_before) -> dict:
         optimized=sys_.optimized_trajectory_array())
 
 
-def run_jax(cam, imgs, deps) -> dict:
+def run_jax(cam, imgs, deps, lag: int = 0) -> dict:
     from lsd_slam_tpu.camera import Camera
-    from lsd_slam_tpu.config import LSDConfig, KeyframeConfig
+    from lsd_slam_tpu.config import LSDConfig, KeyframeConfig, SystemConfig
     from lsd_slam_tpu.system import SlamSystem
 
     cfg = LSDConfig(width=W, height=H).replace(
-        keyframe=KeyframeConfig(**KEYFRAME))
+        keyframe=KeyframeConfig(**KEYFRAME),
+        system=SystemConfig(pipeline_lag=lag))
     sys_ = SlamSystem(Camera(*cam, width=W, height=H), cfg,
                       enable_slam=True)
     out = scenario(sys_, imgs, deps)
     return summary(sys_, dict(sys_.stats.counters), *out)
 
 
-def run_port(cam, imgs, deps) -> dict:
+def run_port(cam, imgs, deps, lag: int = 0) -> dict:
     import torch
     from lsd_slam_tpu_torch.camera import Camera
-    from lsd_slam_tpu_torch.config import LSDConfig, KeyframeConfig
+    from lsd_slam_tpu_torch.config import (LSDConfig, KeyframeConfig,
+                                           SystemConfig)
     from lsd_slam_tpu_torch.system import SlamSystem
 
     torch.set_num_threads(PORT_THREADS)
     cfg = LSDConfig(width=W, height=H).replace(
-        keyframe=KeyframeConfig(**KEYFRAME))
+        keyframe=KeyframeConfig(**KEYFRAME),
+        system=SystemConfig(pipeline_lag=lag))
     sys_ = SlamSystem(Camera(*cam, width=W, height=H), cfg, device="cpu")
     out = scenario(sys_, imgs, deps)
     return summary(sys_, sys_.stats.snapshot(), *out)
 
 
-def main(engine: str, src: str, dst: str) -> int:
+def main(engine: str, src: str, dst: str, lag: str = "0") -> int:
     d = np.load(src)
     cam = [float(x) for x in d["cam"]]
     run = {"jax": run_jax, "port": run_port}[engine]
-    np.savez(dst, **run(cam, d["imgs"], d["deps"]))
+    np.savez(dst, **run(cam, d["imgs"], d["deps"], int(lag)))
     return 0
 
 

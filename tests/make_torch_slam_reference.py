@@ -1,7 +1,7 @@
 """Write the JAX SLAM references that `chip_smoke.py`'s [slam] and
 [slam-loop] phases hold the port to.
 
-Two sequences (`--scene`):
+Two sequences (`--scene`), each at a pipeline lag (`--lag`, default 0):
 - `bench`: 640x480, default LSDConfig() (sequential, SLAM on),
   BenchScene(seed=0) rendered along bench_trajectory(N) by the port's
   `render_realistic(noise_sigma=0)`; written to
@@ -10,6 +10,12 @@ Two sequences (`--scene`):
   by the port's `render`, with the aggressive keyframe settings of
   tests/test_slam_e2e.py's `slam_config()` (the sequence of
   tests/test_torch_slam.py); written to slam_loop_160x128.json there.
+With `--lag L` (L > 0) the engine keeps L frames in flight
+(`SystemConfig.pipeline_lag`) and the file name gains `_lagL`
+(slam_bench_640x480_lag3.json, slam_loop_160x128_lag3.json); the ring is
+drained (`block_until_mapped`) before the manual loss and after the lost
+frame, so every frame up to N-1 is retired and logged and the loss takes
+effect at once, as at lag 0.
 Both are rendered on the CPU, so the JAX engine and a CPU check of the port
 read the same images. The run: gt_depth_init on frame 0, track_frame for
 frames 1..N-1, then a manual tracking loss on a repeat of frame N-1 and the
@@ -25,13 +31,19 @@ ATE go to the file.
 
 Run one JAX process at a time; at 640x480 it takes minutes. The run must
 track every frame before the loss, finish at least 3 keyframes, re-activate
-a keyframe and relocalise, and the loop sequence must add a loop-closure
-edge (exit 1 otherwise). With --check-port (or --check-jax) it instead runs
+a keyframe and relocalise, and the loop sequence at lag 0 must add a
+loop-closure edge (exit 1 otherwise; at lag 3 its keyframes lie further
+apart and close no loop). With --check-port (or --check-jax) it instead runs
 the port (or the JAX engine) on the CPU over the same sequence and prints
 its differences from the stored reference; --threads sets the port's torch
 threads (run the JAX engine under `taskset` to change its thread count)
 and --noise-seed scales every image by 1 + 1e-6 * N(0, 1) from that seed,
 so that the spread of runs which differ only in rounding can be measured.
+--threaded (with --check-port or --check-jax) runs the engine with
+`sequential=False` (constraint search and PGO on worker threads, and at
+lag 0 the mapping thread), whose graph is not deterministic: it prints the
+same differences, for the property checks of chip_smoke.py's
+[slam-production] and [slam-threads] phases.
 """
 
 from __future__ import annotations
@@ -61,13 +73,21 @@ SCENES = {
                  frames=36, scene_seed=13, keyframe=KEYFRAME,
                  trajectory="loop_trajectory(n_frames)"),
 }
+# At pipeline_lag=3 the bench's keyframes lie 11 frames apart (8 at lag 0)
+# and N = 130 builds another graph when only rounding changes (the port
+# with 8 threads adds the loop edge (102, 55)); so does N = 150, while
+# N = 100 keeps the JAX graph in every rounding variant (PERF.md
+# section 6).
+LAG_FRAMES = {("bench", 3): 100}
 COUNTERS = ("keyframes_created", "keyframes_reactivated", "relocalized",
             "relocalization_rejected")
 
 
-def out_path(scene: str) -> str:
-    return os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
-                        SCENES[scene]["file"])
+def out_path(scene: str, lag: int = 0) -> str:
+    name = SCENES[scene]["file"]
+    if lag:
+        name = name.replace(".json", f"_lag{lag}.json")
+    return os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data", name)
 
 
 def rotation_angle(qa, qb):
@@ -111,9 +131,11 @@ def drive(sys_, imgs, dep0, n):
     sys_.gt_depth_init(imgs[0], dep0, 0, 0.0)
     for i in range(1, n):
         sys_.track_frame(imgs[i], i, i / 30.0)
+    sys_.block_until_mapped()   # retire the frames in flight (lag > 0)
     assert sys_.tracking_is_good, "tracking lost before the manual loss"
     sys_.manual_tracking_loss = True
     sys_.track_frame(imgs[n - 1], n, n / 30.0)
+    sys_.block_until_mapped()   # retire the lost frame
     recovered = None
     for j, i in enumerate(range(n - 2, n // 2, -1)):
         sys_.track_frame(imgs[i], n + 1 + j, (n + 1 + j) / 30.0)
@@ -147,63 +169,68 @@ def summary(sys_, poses, n, recovered, counters):
         optimized_c2w_sim3=np.asarray(opt, np.float64).tolist())
 
 
-def config(cfg_cls, kf_cls, scene: str):
+def config(cfg_cls, kf_cls, scene: str, lag: int = 0,
+           threaded: bool = False):
     s = SCENES[scene]
     cfg = cfg_cls(width=s["width"], height=s["height"])
     if s["keyframe"]:
         cfg = cfg.replace(keyframe=kf_cls(**s["keyframe"]))
-    return cfg
+    return cfg.replace(system=dataclasses.replace(
+        cfg.system, pipeline_lag=lag, sequential=not threaded))
 
 
-def jax_system(scene: str):
+def jax_system(scene: str, lag: int = 0, threaded: bool = False):
     os.environ.setdefault("LSD_AOT_CACHE", "0")
     from lsd_slam_tpu.config import KeyframeConfig, LSDConfig
     from lsd_slam_tpu.system import SlamSystem
     from lsd_slam_tpu.utils import synth
 
     s = SCENES[scene]
-    cfg = config(LSDConfig, KeyframeConfig, scene)
+    cfg = config(LSDConfig, KeyframeConfig, scene, lag, threaded)
     cfg = cfg.replace(system=dataclasses.replace(cfg.system,
                                                  use_device_mesh=False))
     return SlamSystem(synth.default_camera(s["width"], s["height"]), cfg,
                       enable_slam=True)
 
 
-def run_jax(scene: str, n: int):
+def run_jax(scene: str, n: int, lag: int = 0):
     s = SCENES[scene]
     poses, imgs, dep0 = frames(scene, n)
-    sys_ = jax_system(scene)
+    sys_ = jax_system(scene, lag)
     recovered = drive(sys_, imgs, dep0, n)
     out = dict(scene=scene, n_frames=n, width=s["width"], height=s["height"],
                scene_seed=s["scene_seed"], keyframe_config=s["keyframe"],
-               noise_sigma=0.0, trajectory=s["trajectory"])
+               noise_sigma=0.0, trajectory=s["trajectory"], pipeline_lag=lag)
     out.update(summary(sys_, poses, n, recovered, dict(sys_.stats.counters)))
     return out
 
 
-def check(ref: dict, engine: str, threads: int, noise_seed: int):
+def check(ref: dict, engine: str, threads: int, noise_seed: int,
+          threaded: bool = False):
     import torch
     from lsd_slam_tpu_torch.config import KeyframeConfig, LSDConfig
     from lsd_slam_tpu_torch.system import SlamSystem
     from lsd_slam_tpu_torch.utils import synth
 
     scene, n = ref["scene"], ref["n_frames"]
+    lag = ref.get("pipeline_lag", 0)
     poses, imgs, dep0 = frames(scene, n, noise_seed)
     if engine == "jax":
-        sys_ = jax_system(scene)
+        sys_ = jax_system(scene, lag, threaded)
         counters = lambda: dict(sys_.stats.counters)  # noqa: E731
     else:
         if threads:
             torch.set_num_threads(threads)
         sys_ = SlamSystem(synth.default_camera(ref["width"], ref["height"]),
-                          config(LSDConfig, KeyframeConfig, scene),
-                          device="cpu")
+                          config(LSDConfig, KeyframeConfig, scene, lag,
+                                 threaded), device="cpu")
         counters = sys_.stats.snapshot
     t0 = time.time()
     recovered = drive(sys_, imgs, dep0, n)
     got = summary(sys_, poses, n, recovered, counters())
     out = dict(engine=engine, torch_threads=torch.get_num_threads(),
-               noise_seed=noise_seed, seconds=time.time() - t0,
+               noise_seed=noise_seed, pipeline_lag=lag, threaded=threaded,
+               seconds=time.time() - t0,
                torch=torch.__version__)
     for key in ("keyframe_ids", "parent_ids", "edges", "nonparent_edges",
                 "counters", "recovered_at", "ate", "ate_optimized"):
@@ -230,14 +257,24 @@ def main():
     ap.add_argument("--check-jax", action="store_true")
     ap.add_argument("--threads", type=int, default=0)
     ap.add_argument("--noise-seed", type=int, default=0)
+    ap.add_argument("--lag", type=int, default=0,
+                    help="pipeline_lag of the run (and of the file)")
+    ap.add_argument("--threaded", action="store_true",
+                    help="with --check-*: run with sequential=False")
+    ap.add_argument("--out", help="the reference file to write or check "
+                    "(default: the scene's file under reference_data/)")
     args = ap.parse_args()
-    out = out_path(args.scene)
+    out = args.out or out_path(args.scene, args.lag)
     if args.check_port or args.check_jax:
         with open(out) as f:
             check(json.load(f), "jax" if args.check_jax else "port",
-                  args.threads, args.noise_seed)
+                  args.threads, args.noise_seed, args.threaded)
         return 0
-    ref = run_jax(args.scene, args.frames or SCENES[args.scene]["frames"])
+    if args.threaded:
+        ap.error("--threaded needs --check-port or --check-jax")
+    n = (args.frames or LAG_FRAMES.get((args.scene, args.lag))
+         or SCENES[args.scene]["frames"])
+    ref = run_jax(args.scene, n, args.lag)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump(ref, f)
@@ -246,7 +283,7 @@ def main():
     c = ref["counters"]
     ok = (len(ref["keyframe_ids"]) >= 3 and c["keyframes_reactivated"] >= 1
           and c["relocalized"] >= 1
-          and (args.scene != "loop" or ref["nonparent_edges"]))
+          and (args.scene != "loop" or args.lag or ref["nonparent_edges"]))
     return 0 if ok else 1
 
 

@@ -5,6 +5,8 @@ import dataclasses
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -151,28 +153,129 @@ def test_slam_system_runs_where_asked():
 
 @pytest.mark.parametrize("kw", [
     dict(cfg=CFG.replace(system=SystemConfig(use_fabmap=True))),
-    dict(cfg=CFG.replace(system=SystemConfig(pipeline_lag=2))),
-    dict(cfg=CFG.replace(system=SystemConfig(sequential=False))),
+    dict(cfg=CFG.replace(system=SystemConfig(use_fabmap=True)), graph=True),
+    dict(cfg=CFG, pgo_vertices=PoseGraph.dense_threshold + 1),
 ])
 def test_unported_modes_raise(kw):
-    args = dict(cfg=CFG, device="cpu")
-    args.update(kw)
+    """What is still to be ported raises, naming its ROADMAP item: the
+    appearance index (in SlamSystem, and in the keyframe graph of a VO
+    engine) and the sparse PGO above the dense threshold."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlamSystem(CAM, **args)
+        if "pgo_vertices" in kw:
+            pg = PoseGraph(device="cpu")
+            for _ in range(kw["pgo_vertices"]):
+                pg.add_vertex(np.array([1, 0, 0, 0, 0, 0, 0, 1.0]))
+            pg.add_edge(0, 1, np.array([1, 0, 0, 0, 0, 0, 0, 1.0]),
+                        np.eye(7), 1.0)
+            pg.optimize(1)
+        elif kw.get("graph"):
+            from lsd_slam_tpu_torch.mapping.keyframe_graph import \
+                KeyFrameGraph
+            KeyFrameGraph(SlamSystem(CAM, kw["cfg"], enable_slam=False,
+                                     device="cpu"))
+        else:
+            SlamSystem(CAM, kw["cfg"], device="cpu")
+
+
+@pytest.mark.parametrize("sequential", [True, False])
+@pytest.mark.parametrize("lag", [0, 2, 3])
+def test_concurrent_modes_construct_and_finalize(sequential, lag):
+    """Every sequential x pipeline_lag combination builds; the mapping
+    thread runs only threaded at lag 0, the back-end's threads whenever
+    threaded, and finalize stops them all."""
+    cfg = CFG.replace(system=SystemConfig(sequential=sequential,
+                                          pipeline_lag=lag))
+    sys_ = SlamSystem(CAM, cfg, device="cpu")
+    assert sys_._lag == lag
+    assert (sys_.mapping_thread is not None) == (not sequential and lag == 0)
+    assert len(sys_.backend.workers()) == (0 if sequential else 2)
+    assert all(w.alive() for w in sys_.workers())
+    sys_.finalize()
+    assert not any(w.alive() for w in sys_.workers())
 
 
 def test_unported_mapping_paths_raise():
-    """The unfused queue-drain observe and the sequential=False back-end
-    raise; VO mode has no relocaliser (it returns at once, as in JAX)."""
+    """The mapping paths that once raised work now: the queue-drain mapping
+    (`update_keyframe_batch`, `update_keyframe`) with nothing to map
+    returns False, the threaded back-end starts its threads; VO mode has no
+    relocaliser (it returns at once, as in JAX)."""
     sys_ = SlamSystem(CAM, CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sys_.update_keyframe_batch([object()])
+    assert sys_.update_keyframe_batch([]) is False
+    assert sys_.update_keyframe() is False
     from lsd_slam_tpu_torch.mapping import MappingBackend
     threaded = SlamSystem(CAM, CFG, enable_slam=False, device="cpu")
     threaded.cfg = CFG.replace(system=SystemConfig(sequential=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MappingBackend(threaded)
+    backend = MappingBackend(threaded)
+    assert [w.name for w in backend.workers()] == ["lsd-constraints",
+                                                   "lsd-optimization"]
+    backend.stop_threads()
+    assert not any(w.alive() for w in backend.workers())
     vo = SlamSystem(CAM, CFG, enable_slam=False, device="cpu")
     img = np.zeros((128, 160), np.float32)
     assert vo.backend is None
     assert vo._attempt_relocalization(img, 0, 0.0) is None
+
+
+def test_kernel_library_loads_once_across_threads(monkeypatch, tmp_path):
+    """Two threads' first use of a kernel library builds it once and load
+    it once (ops/build.py's lock); the build is stubbed, so no nvcc."""
+    from lsd_slam_tpu_torch.ops import build
+
+    builds = []
+    start = threading.Barrier(2)
+    lib_path = tmp_path / "libfake.so"
+
+    def fake_build(names):
+        builds.append(list(names))
+        time.sleep(0.2)           # a slow nvcc: the other thread waits
+        lib_path.write_bytes(b"")
+
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "build", fake_build)
+    monkeypatch.setattr(build, "library_path", lambda name: lib_path)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("lib", path))
+    got = []
+
+    def first_use():
+        start.wait(30.0)
+        got.append(build.load("regularize_stencil"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30.0)
+    assert builds == [["regularize_stencil"]]
+    assert len(got) == 2 and got[0] is got[1]
+
+
+def test_launch_counter_keeps_every_count_across_threads(monkeypatch):
+    """The launch counters are bumped under a lock: no count is lost when
+    more threads than cores launch at once with a short switch interval
+    (the launch itself is stubbed)."""
+    monkeypatch.setattr(stencil, "_cuda_or_plain", lambda name, t: True)
+    monkeypatch.setattr(stencil, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(stencil, "_launch", lambda *a, **k: None)
+    monkeypatch.setattr(stencil, "FUSED_LAUNCHES", 0)
+    f32 = torch.zeros(4, 4)
+    args = (f32, f32, f32 > 0, f32, f32, f32,
+            torch.zeros(4, 4, dtype=torch.int32), 0.005625, 1.0, 24.0, False)
+
+    def launch_many():
+        for _ in range(500):
+            stencil.regularize_fused(*args)
+
+    n_threads = 2 * (os.cpu_count() or 4)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch_many)
+                   for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert stencil.FUSED_LAUNCHES == 500 * n_threads
