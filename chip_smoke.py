@@ -84,6 +84,42 @@ prints no ok line:
                and PGO on their threads), free-running: tracking good,
                n_edges >= keyframes - 1, ATE < 0.03
                (tests/test_slam_e2e.py:134).
+ 11. undistort — camera/undistort.py at 640x480 in and out, the FOV
+               parameters [0.7, 0.9333, 0.5, 0.5, 0.9] (crop and full) and
+               the OpenCV ones [0.7, 0.9333, 0.5, 0.5, -0.2, 0.05, 0, 0]
+               (crop): the card's remap of a seeded image against the CPU
+               port's on the same image and tables, within UNDISTORT_ATOL,
+               the valid mask exact; CUDA-event ms per frame and host us
+               per call.
+ 12. cli     — the dataset runner as a user runs it, at 640x480, SLAM on:
+               the first CLI_FRAMES frames of [slam]'s sequence
+               (bench_trajectory(130), BenchScene(seed=0),
+               render_realistic(noise_sigma=0)) written as PNG with
+               adaptive row filters (`png_adaptive`, libpng's heuristic:
+               nearly every row Paeth), an identity calibration (FOV omega
+               0, `none`). The folder is decoded on the host one file at a
+               time and as the runner reads it (ms per frame of each; both
+               equal the frames written). Then the runner's entry,
+               `io.runner.main(["files:...", "calib:...", "out:..."])`
+               (hz:0), in a fresh process through `--counted-runner`, which
+               zeroes the launch counters just before and prints them just
+               after; and the same folder in this process through
+               ImageFolderSource + SlamSystem (random_init, track_frame,
+               finalize). Checks: every output of the runner exists and
+               parses (estimated_poses.txt with a line per frame, a
+               kf_*.npz per keyframe with finite idepth, poses.jsonl,
+               graph.jsonl, pointcloud.ply whose header count is the number
+               of points it holds, > 0); >= 2 keyframes; the runner's
+               keyframe ids and edge pairs equal the in-process run's and
+               its trajectory lies within [slam]'s bounds of it. Then
+               `checkpoint:` on frames 0-29 and `resume:` on a folder of
+               frames 30-59 (the trajectory grows to every frame, tracked),
+               and `hz:30 pipeline:3` on the whole folder (every frame
+               once, unique edges >= keyframes - 1). Every runner run
+               launches the fused kernel, never the accumulators entry, and
+               calls no plain version; its counts are the `cli_launches` of
+               the kernels line and part of its `launches`. Prints each
+               run's fps from its `done:` line.
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -94,6 +130,11 @@ also builds OLD.cu (an earlier version of csrc/regularize_stencil.cu with
 the same `lsd_regularize_accumulators` entry, e.g. from `git show`) and
 times it against the current kernel in turns (old, new, new, old),
 L2-warm and cold.
+
+    python3 chip_smoke.py --counted-runner files:DIR calib:FILE out:DIR ...
+
+runs `lsd_slam_tpu_torch.io.runner.main` with those arguments and prints
+its kernel counts as the last line (what [cli] runs for each runner call).
 
     python3 chip_smoke.py --pipeline-turns
 
@@ -117,10 +158,12 @@ import itertools
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
 import types
+import zlib
 
 import numpy as np
 
@@ -178,6 +221,21 @@ THREADED_RUNS = {
 MULTI_BOUND = 1e-5
 
 STENCIL_RTOL = STENCIL_ATOL = 1e-6  # tests/test_pallas_stencil.py:36-38
+
+# the undistort remap, card against the CPU port on the same image and
+# tables (0-255 values; tests/test_torch_io.py holds the CPU port to JAX
+# at the same bound)
+UNDISTORT_ATOL = 1e-4
+UNDISTORT_CASES = {
+    "fov-crop": ([0.7, 0.9333, 0.5, 0.5, 0.9], "crop"),
+    "fov-full": ([0.7, 0.9333, 0.5, 0.5, 0.9], "full"),
+    "opencv-crop": ([0.7, 0.9333, 0.5, 0.5, -0.2, 0.05, 0.0, 0.0], "crop"),
+}
+# the dataset runner's phase: frames of [slam]'s sequence, and where the
+# checkpoint run stops and the resumed one starts
+CLI_FRAMES, CLI_SPLIT = 60, 30
+# what `--counted-runner` prints before its kernel counts
+COUNTS_TAG = "[counted-runner] "
 
 # L2 is 50 MB: the cold timings rotate over more input bytes than this
 COLD_BYTES = 64 << 20
@@ -808,6 +866,316 @@ def observe_multi_phase(torch, stencil, counted_plain, reg_bound):
     return launches, worst_err, worst_flips
 
 
+def undistort_phase(torch, card):
+    """Phase 11: the undistort remap on the card against the CPU port, and
+    its time per frame."""
+    from lsd_slam_tpu_torch.camera import undistorter_for_params
+
+    img = np.random.default_rng(0).uniform(0, 255, (480, 640)).astype(
+        np.float32)
+    for name, (params, spec) in UNDISTORT_CASES.items():
+        gpu = undistorter_for_params(params, (640, 480), spec, (640, 480),
+                                     device="cuda")
+        cpu = undistorter_for_params(params, (640, 480), spec, (640, 480),
+                                     device="cpu")
+        assert not gpu._identity and gpu.camera == cpu.camera
+        for t in ("_rx", "_ry", "_valid"):
+            assert torch.equal(getattr(gpu, t).cpu(), getattr(cpu, t)), t
+        frame = torch.as_tensor(img, device="cuda")
+        got = gpu(frame).cpu().numpy()
+        want = cpu(img).numpy()
+        valid = cpu._valid.numpy()
+        err = float(np.abs(got - want).max())
+        # the valid masks are equal (the tables above); off them both are 0
+        assert (got[~valid] == 0).all() and err <= UNDISTORT_ATOL, (name,
+                                                                    err)
+        ms = time_gpu(torch, lambda: gpu(frame), 50, 30)
+        host_us = host_us_per_call(torch, lambda: gpu(frame))
+        log(f"[undistort] {name} 640x480: max abs err vs the CPU port "
+            f"{err:.3g} (bound {UNDISTORT_ATOL:g}), valid "
+            f"{valid.mean():.4f} (mask exact); {ms:.5f} ms per frame "
+            f"(CUDA events), host {host_us:.1f} us per call; {card}")
+
+
+def _runner(args, timeout=900):
+    """`lsd_slam_tpu_torch.io.runner.main(ARGS)` in a fresh process
+    (`chip_smoke.py --counted-runner ARGS`, see `counted_runner`); returns
+    (stdout, frames per second from its `done:` line, its kernel counts).
+    Fails unless the run launched the fused kernel, never the accumulators
+    entry, and called no plain version."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--counted-runner", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"runner {args} exit {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    done = [ln for ln in lines if ln.startswith("done:")]
+    assert len(done) == 1, proc.stdout[-3000:]
+    assert lines[-1].startswith(COUNTS_TAG), proc.stdout[-3000:]
+    counts = json.loads(lines[-1][len(COUNTS_TAG):])
+    assert (counts["fused"] > 0 and counts["accumulators"] == 0
+            and counts["plain"] == 0), (args, counts)
+    return (proc.stdout, float(done[0].split("(")[1].split(" fps")[0]),
+            counts)
+
+
+def counted_runner(argv) -> int:
+    """`chip_smoke.py --counted-runner ARGS`: the dataset runner's own
+    entry, `io.runner.main(ARGS)`, as `python -m lsd_slam_tpu_torch.io.runner
+    ARGS` calls it, with the kernel launch counters zeroed just before and
+    the plain versions counted; the counts read just after are the last
+    line, behind COUNTS_TAG."""
+    from lsd_slam_tpu_torch.io import runner
+    from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
+
+    with counted_plain(stencil) as plain_calls:
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        runner.main(argv)
+        counts = dict(fused=stencil.FUSED_LAUNCHES,
+                      accumulators=stencil.LAUNCHES, plain=plain_calls[0])
+    log(COUNTS_TAG + json.dumps(counts))
+    return 0
+
+
+def _runner_outputs(out, n_frames, need_graph=True):
+    """Parse what the runner wrote into `out`: the TUM rows, the keyframe
+    ids and edge pairs of the last graph message (of the kf_*.npz files
+    where a run has no graph: a resumed run whose checkpoint held no edge
+    and which finished no keyframe), the PLY's point count. Checks that
+    every file exists and parses."""
+    from lsd_slam_tpu_torch.io.trajectory import load_tum_trajectory
+
+    traj = load_tum_trajectory(os.path.join(out, "estimated_poses.txt"))
+    assert traj.shape == (n_frames, 8), traj.shape
+    with open(os.path.join(out, "poses.jsonl")) as f:
+        poses = [json.loads(line) for line in f]
+    assert poses and all(len(p["cam_to_world"]) == 8 for p in poses)
+    with open(os.path.join(out, "graph.jsonl")) as f:
+        graph = [json.loads(line) for line in f]
+    assert graph or not need_graph, "no graph message"
+    kf_files = sorted(f for f in os.listdir(out) if f.startswith("kf_"))
+    assert kf_files, "no keyframe file"
+    kfs = ([f["id"] for f in graph[-1]["frames"]] if graph
+           else [int(f[3:9]) for f in kf_files])
+    assert kf_files == [f"kf_{i:06d}.npz" for i in sorted(kfs)], kf_files
+    for name in kf_files:
+        d = np.load(os.path.join(out, name))
+        assert d["idepth"].shape == (480, 640)
+        assert np.isfinite(d["idepth"]).all(), name
+    with open(os.path.join(out, "pointcloud.ply"), "rb") as f:
+        head, body = f.read().split(b"end_header\n", 1)
+    n_pts = int(head.split(b"element vertex ")[1].split()[0])
+    assert n_pts > 0 and len(body) == 15 * n_pts, (n_pts, len(body))
+    edges = ([(c["from"], c["to"]) for c in graph[-1]["constraints"]]
+             if graph else [])
+    return traj, kfs, edges, n_pts, len(poses)
+
+
+def png_adaptive(img: np.ndarray) -> tuple:
+    """(PNG bytes, rows per filter type) of a (h, w) uint8 image, each row
+    with the filter whose bytes, read as signed, sum smallest in magnitude:
+    the heuristic of libpng and Pillow, which write the PNGs of public
+    datasets; the port's own `write_png` writes filter 0 only."""
+    h, w = img.shape
+    x = img.astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    filt = np.stack([(x - p) & 0xFF for p in (0, a, b, (a + b) >> 1,
+                                               paeth)]).astype(np.uint8)
+    cost = np.minimum(filt, 256 - filt.astype(np.int32)).sum(axis=2)
+    pick = cost.argmin(axis=0)
+    rows = np.concatenate([pick[:, None].astype(np.uint8),
+                           filt[pick, np.arange(h)]], axis=1)
+
+    def chunk(ctype, body):
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+    data = (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+    return data, np.bincount(pick, minlength=5)
+
+
+def write_cli_dataset(torch, root):
+    """[slam]'s first CLI_FRAMES frames as PNG (uint8, as a camera would
+    deliver them; adaptive row filters, as libpng writes them) and the
+    identity calibration; returns (frames dir, calibration file, gt
+    poses, the frames, rows per filter type over all frames)."""
+    from lsd_slam_tpu_torch.utils import synth
+
+    w, h = 640, 480
+    cam = synth.default_camera(w, h)
+    scene = synth.BenchScene(seed=0)
+    poses = synth.bench_trajectory(130)[:CLI_FRAMES]
+    frames = os.path.join(root, "frames")
+    os.makedirs(frames)
+    images, n_filter = [], np.zeros(5, np.int64)
+    for i in range(CLI_FRAMES):
+        img, _ = synth.render_realistic(scene, cam, poses[i], frame_index=i,
+                                        noise_sigma=0.0, device="cuda")
+        images.append(img.clamp(0, 255).to(torch.uint8).cpu().numpy())
+        data, per_filter = png_adaptive(images[-1])
+        n_filter += per_filter
+        with open(os.path.join(frames, f"{i:05d}.png"), "wb") as f:
+            f.write(data)
+    calib = os.path.join(root, "calib.cfg")
+    with open(calib, "w") as f:
+        f.write(f"0.7 {0.7 * w / h} {((w - 1) / 2 + 0.5) / w} "
+                f"{((h - 1) / 2 + 0.5) / h} 0\n{w} {h}\nnone\n{w} {h}\n")
+    return frames, calib, poses, images, n_filter
+
+
+def time_decode(frames, images):
+    """Decode the folder on this host one file at a time (`read_gray`) and
+    as the runner reads it (`read_gray_many`, ImageFolderSource.read_ahead
+    files at a time); both must give the written frames exactly. Returns
+    the ms per frame of each."""
+    from lsd_slam_tpu_torch.io.dataset import ImageFolderSource
+    from lsd_slam_tpu_torch.utils import image_io
+
+    files = ImageFolderSource(frames).files
+    step = ImageFolderSource.read_ahead
+    t0 = time.perf_counter()
+    one = [image_io.read_gray(f) for f in files]
+    t1 = time.perf_counter()
+    many = [g for k in range(0, len(files), step)
+            for g in image_io.read_gray_many(files[k:k + step])]
+    t2 = time.perf_counter()
+    for a, b, want in zip(one, many, images):
+        assert np.array_equal(a, want) and np.array_equal(b, want)
+    return (t1 - t0) * 1e3 / len(files), (t2 - t1) * 1e3 / len(files)
+
+
+def cli_phase(torch, card):
+    """Phase 12: the dataset runner on the card; returns each runner run's
+    fused launches."""
+    import shutil
+    import tempfile
+
+    from lsd_slam_tpu_torch.config import LSDConfig
+    from lsd_slam_tpu_torch.io import ImageFolderSource
+    from lsd_slam_tpu_torch.system import SlamSystem
+    from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
+
+    _, c_bound, r_bound = SLAM_RUNS["slam"]
+    root = tempfile.mkdtemp(prefix="lsd_cli_")
+    try:
+        t0 = time.perf_counter()
+        frames, calib, gt, images, n_filter = write_cli_dataset(torch, root)
+        log(f"[cli] wrote {CLI_FRAMES} 640x480 PNG frames in "
+            f"{time.perf_counter() - t0:.2f} s; rows by filter (None, Sub, "
+            f"Up, Average, Paeth): {n_filter.tolist()}")
+        one_ms, many_ms = time_decode(frames, images)
+        log(f"[cli] decode on the host: {one_ms:.2f} ms per frame one file "
+            f"at a time, {many_ms:.2f} ms per frame "
+            f"{ImageFolderSource.read_ahead} at a time (the runner's way); "
+            f"both equal the written frames")
+        out = os.path.join(root, "out")
+        stdout, fps, counts = _runner([f"files:{frames}", f"calib:{calib}",
+                                       f"out:{out}"])
+        traj, kfs, edges, n_pts, n_poses = _runner_outputs(out, CLI_FRAMES)
+        launches = {"hz0": counts["fused"]}
+        log(f"[cli] runner hz:0: {fps:g} fps ({CLI_FRAMES} frames, decode "
+            f"{many_ms:.2f} ms per frame on this host), keyframes {kfs}, "
+            f"{len(edges)} edges, {n_pts} points, {n_poses} tracked poses "
+            f"published; regularize_fused launches {counts['fused']}, "
+            f"regularize_accumulators launches {counts['accumulators']}, "
+            f"plain-version calls {counts['plain']}")
+        log("[cli] runner " + next(ln for ln in stdout.splitlines()
+                                   if ln.startswith("timing:")))
+
+        # the same folder in this process: the graph and trajectory the
+        # runner's must equal
+        src = ImageFolderSource(frames, calib, device="cuda")
+        t0 = time.perf_counter()
+        sys_ = SlamSystem(src.camera, LSDConfig(width=640, height=480))
+        for i, ts, img in src:
+            if i == 0:
+                sys_.random_init(img, i, ts)
+            else:
+                sys_.track_frame(img, i, ts)
+        sys_.finalize()
+        torch.cuda.synchronize()
+        in_s = time.perf_counter() - t0
+        ikfs = [kf.id for kf in sys_.keyframes]
+        iedges = [(e.first.id, e.second.id) for e in sys_.backend.graph.edges]
+        mine = np.asarray([p for _, _, p in sys_.trajectory])
+        dc = np.linalg.norm(traj[:, 1:4] - mine[:, 4:7], axis=1)
+        da = np.asarray([rotation_angle(np.r_[a[7], a[4:7]], b[0:4])
+                         for a, b in zip(traj, mine)])
+        ate = float(ate_rmse(sys_.trajectory_array(), gt))
+        log(f"[cli] in-process: {CLI_FRAMES / in_s:.3f} fps, keyframes "
+            f"{ikfs}, {len(iedges)} edges, tracking good "
+            f"{sys_.tracking_is_good}, ATE {ate:.6g} (scale-aligned); "
+            f"runner vs in-process: max |centre| {dc.max():.4g}, max rot "
+            f"{da.max():.4g} rad (bounds {c_bound:g} / {r_bound:g})")
+        assert sys_.tracking_is_good, "the in-process run ends lost"
+        assert len(kfs) >= 2, kfs
+        assert kfs == ikfs, (kfs, ikfs)
+        assert edges == iedges, (edges, iedges)
+        assert dc.max() <= c_bound and da.max() <= r_bound, (dc.max(),
+                                                             da.max())
+
+        # checkpoint on frames 0..CLI_SPLIT-1, resume on the rest
+        halves = [os.path.join(root, n) for n in ("first", "second")]
+        for k, d in enumerate(halves):
+            os.makedirs(d)
+            for i in (range(CLI_SPLIT) if k == 0
+                      else range(CLI_SPLIT, CLI_FRAMES)):
+                shutil.copy(os.path.join(frames, f"{i:05d}.png"), d)
+        ckpt = os.path.join(root, "ckpt.npz")
+        _, fps_a, counts = _runner([f"files:{halves[0]}", f"calib:{calib}",
+                                    f"out:{os.path.join(root, 'out_a')}",
+                                    f"checkpoint:{ckpt}"])
+        launches["checkpoint"] = counts["fused"]
+        stdout, fps_b, counts = _runner([f"files:{halves[1]}",
+                                         f"calib:{calib}",
+                                         f"out:{os.path.join(root, 'out_b')}",
+                                         f"resume:{ckpt}"])
+        launches["resume"] = counts["fused"]
+        traj_b, kfs_b, _, _, n_b = _runner_outputs(
+            os.path.join(root, "out_b"), CLI_FRAMES, need_graph=False)
+        assert "resumed from" in stdout
+        assert np.array_equal(traj_b[:, 0], np.arange(CLI_FRAMES))
+        assert n_b == CLI_FRAMES - CLI_SPLIT, n_b
+        log(f"[cli] checkpoint: frames 0..{CLI_SPLIT - 1} at {fps_a:g} fps "
+            f"({launches['checkpoint']} fused launches); resume: frames "
+            f"{CLI_SPLIT}..{CLI_FRAMES - 1} at {fps_b:g} fps "
+            f"({launches['resume']} fused launches), trajectory of "
+            f"{len(traj_b)} frames, every one tracked, keyframes {kfs_b}")
+
+        # the production mode: threaded back-end, pipelined loop
+        stdout, fps_p, counts = _runner([f"files:{frames}", f"calib:{calib}",
+                                         f"out:{os.path.join(root, 'out_p')}",
+                                         "hz:30", "pipeline:3"])
+        launches["hz30_pipeline3"] = counts["fused"]
+        traj_p, kfs_p, edges_p, n_pts_p, _ = _runner_outputs(
+            os.path.join(root, "out_p"), CLI_FRAMES)
+        pairs = {tuple(sorted(e)) for e in edges_p}
+        assert np.array_equal(np.sort(traj_p[:, 0]), np.arange(CLI_FRAMES))
+        assert len(pairs) >= len(kfs_p) - 1, (pairs, kfs_p)
+        log(f"[cli] hz:30 pipeline:3: {fps_p:g} fps, keyframes {kfs_p}, "
+            f"{len(pairs)} edges, {n_pts_p} points, every frame once, "
+            f"{launches['hz30_pipeline3']} fused launches; {card}")
+        log(f"[cli] regularize_fused launches per runner run {launches}, "
+            f"{sum(launches.values())} in all; no regularize_accumulators "
+            f"launch, no plain-version call")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def check_kernels(torch, stencil, reg_dist_var, diff_facs, validity_th):
     """Both entries against their plain versions at every shape and each
     of `diff_facs`; returns the max abs error of each."""
@@ -938,6 +1306,9 @@ def main() -> int:
                     help="an earlier stencil source to time against")
     ap.add_argument("--pipeline-turns", action="store_true",
                     help="only time lag 0 against lag 3, in turns")
+    ap.add_argument("--counted-runner", nargs=argparse.REMAINDER,
+                    metavar="ARG", help="run io.runner.main(ARG...) with "
+                    "the kernel counts as the last line ([cli] uses it)")
     args = ap.parse_args()
     import torch
 
@@ -951,6 +1322,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.counted_runner is not None:
+        return counted_runner(args.counted_runner)
     from lsd_slam_tpu_torch.ops import build
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
@@ -1129,6 +1502,12 @@ def main() -> int:
                                    "slam-threads")
     phase_done("SLAM threads")
 
+    # ---- 11. and 12. the product surface: undistortion, the runner ----
+    undistort_phase(torch, card)
+    phase_done("undistort")
+    cli_fused = cli_phase(torch, card)
+    phase_done("cli")
+
     common = dict(route="cuda",
                   source="lsd_slam_tpu_torch/csrc/regularize_stencil.cu",
                   replaces="lsd_slam_tpu/ops/pallas_stencil.py:94",
@@ -1137,13 +1516,14 @@ def main() -> int:
         dict(name="regularize_fused", **common,
              launches=(fused_launches + slam_fused + loop_fused
                        + multi_fused + pipe_fused + prod_fused
-                       + threads_fused),
+                       + threads_fused + sum(cli_fused.values())),
              vo_launches=fused_launches, slam_launches=slam_fused,
              slam_loop_launches=loop_fused,
              observe_multi_launches=multi_fused,
              slam_pipelined_launches=pipe_fused,
              slam_production_launches=prod_fused,
              slam_threads_launches=threads_fused,
+             cli_launches=cli_fused,
              slam_busy_share=busy_share,
              slam_pipelined_busy_share=pipe_share,
              observe_multi_max_abs_err=multi_err,

@@ -98,6 +98,11 @@ class MappingBackend:
                 needs_publish = True
         if needs_publish:
             self.system.registry.invalidate_all()
+            if self.system.output is not None:
+                # == publishKeyframeGraph after the merge
+                # (SlamSystem.cpp:198-200): a poses-only update
+                self.system.output.publish_keyframe_graph(
+                    self.system.keyframes, self._graph.edges)
         self._have_unmerged = False
 
     def refresh_permaref(self, kf):

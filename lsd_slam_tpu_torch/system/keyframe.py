@@ -27,13 +27,17 @@ import torch
 
 class Keyframe:
     def __init__(self, frame_id: int, timestamp: float, pyr,
-                 pose, levels: int = 5, min_use_grad: float = 5.0):
+                 pose, levels: int = 5, min_use_grad: float = 5.0,
+                 device=None):
+        """`pyr` None makes a minimized keyframe (a checkpoint's), whose
+        host copies the caller fills and which restores onto `device`."""
         self.id = frame_id
         self.timestamp = timestamp
         self.pose = pose
         self.levels = levels
         self.min_use_grad = min_use_grad
-        self.device = pyr.images[0].device
+        self.device = (pyr.images[0].device if pyr is not None
+                       else torch.device(device))
 
         self._pyr = pyr
         self._depth = None

@@ -185,6 +185,8 @@ class SlamSystem:
             sync=device_sync if cfg.system.profile_sync else None)
         self.frame_memory = KeyframeMemory(
             cfg.keyframe.max_loop_closure_candidates + 20)
+        # Output3DWrapper the engine publishes keyframes/graph updates to
+        self.output = None
         if enable_slam:
             from lsd_slam_tpu_torch.mapping import MappingBackend
             self.backend = MappingBackend(self)
@@ -232,6 +234,12 @@ class SlamSystem:
             self.backend.stop_threads()
 
     # ------------------------------------------------------------- helpers
+
+    def set_visualization(self, output) -> None:
+        """== SlamSystem::setVisualization: attach an Output3DWrapper; the
+        engine then publishes each keyframe when it is finished and graph
+        pose updates after optimisation merges."""
+        self.output = output
 
     def _image(self, image) -> torch.Tensor:
         return torch.as_tensor(np.asarray(image, np.float32)
@@ -633,6 +641,11 @@ class SlamSystem:
         n_min = self.frame_memory.prune(self.keyframes, self.current_keyframe)
         if n_min:
             self.stats.bump("keyframes_minimized", n_min)
+        if self.output is not None:
+            # == publishKeyframe on finish (SlamSystem.cpp:412-414): the
+            # dense buffers go out once per finish; later graph updates
+            # re-send only poses (README.md:310-324)
+            self.output.publish_keyframe(kf)
 
     def change_keyframe(self, no_create: bool, force: bool, max_score: float,
                         tracked: Optional[TrackedFrame] = None):

@@ -2,10 +2,11 @@
 
 The port of lsd_slam_tpu/utils/synth.py's `default_camera`, `PlaneScene`,
 `render`, `orbit_trajectory`, `loop_trajectory`, `BenchScene`,
-`render_bench`, `render_realistic` and `bench_trajectory`: procedurally
-textured multi-plane scenes (band-limited sums of sinusoids, drawn from a
-numpy seed exactly as the JAX package draws them) rendered along known
-trajectories, so ground-truth depth and poses come for free. Poses are
+`render_bench`, `render_realistic`, `bench_trajectory` and
+`make_sequence`: procedurally textured multi-plane scenes (band-limited
+sums of sinusoids, drawn from a numpy seed exactly as the JAX package
+draws them) rendered along known trajectories, so ground-truth depth and
+poses come for free. Poses are
 world->camera SE3; depth is the camera-frame z; intensities are in
 [0, 255].
 """
@@ -295,3 +296,20 @@ def orbit_trajectory(n_frames: int, radius: float = 0.10,
         c2w = np.concatenate([q, t_c2w]).astype(np.float32)
         poses.append(lie.se3_inverse(torch.as_tensor(c2w)).numpy())
     return np.stack(poses)
+
+
+def make_sequence(n_frames: int = 30, width: int = 320, height: int = 240,
+                  seed: int = 0, device=None):
+    """Convenience: (camera, images (n, h, w), depths (n, h, w), poses_w2c
+    (n, 7)); images and depths are stacked tensors on `device` (the CUDA
+    device unless the caller names another), poses a numpy array."""
+    dev = resolve_device(device)
+    cam = default_camera(width, height)
+    scene = PlaneScene(seed=seed)
+    poses = orbit_trajectory(n_frames)
+    imgs, deps = [], []
+    for i in range(n_frames):
+        img, dep = render(scene, cam, poses[i], device=dev)
+        imgs.append(img)
+        deps.append(dep)
+    return cam, torch.stack(imgs), torch.stack(deps), poses

@@ -13,9 +13,10 @@ import pytest
 import torch
 
 from lsd_slam_tpu_torch import interop
-from lsd_slam_tpu_torch.camera import Camera
+from lsd_slam_tpu_torch.camera import Camera, undistorter_for_params
 from lsd_slam_tpu_torch.config import LSDConfig, SystemConfig
 from lsd_slam_tpu_torch.depth.state import DepthMapState
+from lsd_slam_tpu_torch.io.live import LiveSLAMWrapper
 from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
 from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
 from lsd_slam_tpu_torch.system import SlamSystem
@@ -36,6 +37,21 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 bad = sorted(n for n in set(sys.modules) - before
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "lsd_slam_tpu"))
 print("BAD", bad)
+print("SWEPT", sorted(n for n in sys.modules
+                      if n.startswith("lsd_slam_tpu_torch.")))
+"""
+# the product surface, which the sweep must reach
+PRODUCT_MODULES = ("io.runner", "io.dataset", "io.output", "io.checkpoint",
+                   "io.live", "io.dump", "io.trajectory", "viewer.render",
+                   "viewer.live", "viewer.stitch", "camera.undistort",
+                   "utils.image_io", "utils.debug_viz")
+
+_IMPORT_RUNNER = r"""
+import sys
+before = set(sys.modules)
+import lsd_slam_tpu_torch.io.runner, lsd_slam_tpu_torch.io.dataset
+print("PIL", sorted(n for n in set(sys.modules) - before
+                    if n.split(".")[0] == "PIL"))
 """
 
 
@@ -46,6 +62,20 @@ def test_importing_the_port_loads_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    swept = out.stdout.split("SWEPT", 1)[1]
+    for name in PRODUCT_MODULES:
+        assert f"'lsd_slam_tpu_torch.{name}'" in swept, name
+
+
+def test_runner_and_dataset_load_no_pillow():
+    """The card's machine has no Pillow: the runner and the dataset reader
+    import none (PNG and PGM/PPM decode in utils.image_io)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_RUNNER], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "PIL []" in out.stdout, out.stdout
 
 
 @pytest.mark.cuda
@@ -106,10 +136,13 @@ def test_slam_system_without_device_raises_without_cuda(monkeypatch):
                                    "depth_pyramid", "point_set",
                                    "tracking_ref", "render", "render_bench",
                                    "render_realistic", "pose_graph",
-                                   "pose_graph_from_dict", "reactivation"])
+                                   "pose_graph_from_dict", "reactivation",
+                                   "make_sequence", "undistorter",
+                                   "live_wrapper"])
 def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
-    """The state carried across and the synthetic renderer run on the card
-    unless the caller names a device; without one they raise."""
+    """The state carried across, the synthetic renderer, the undistorter
+    and the live wrapper run on the card unless the caller names a device;
+    without one they raise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     z = np.zeros((4, 4), np.float32)
     ident = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
@@ -140,6 +173,10 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
                  e_info=[], e_delta=[])),
         "reactivation": lambda: interop.reactivation_from_dict(
             dict(idepth=z, var=z, validity=z)),
+        "make_sequence": lambda: synth.make_sequence(2, 32, 24),
+        "undistorter": lambda: undistorter_for_params(
+            [0.7, 0.9333, 0.5, 0.5, 0.9], (64, 48), "crop", (64, 48)),
+        "live_wrapper": lambda: LiveSLAMWrapper(CAM, CFG),
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
@@ -155,13 +192,18 @@ def test_slam_system_runs_where_asked():
     dict(cfg=CFG.replace(system=SystemConfig(use_fabmap=True))),
     dict(cfg=CFG.replace(system=SystemConfig(use_fabmap=True)), graph=True),
     dict(cfg=CFG, pgo_vertices=PoseGraph.dense_threshold + 1),
+    dict(argv=["files:/d", "calib:/c.cfg", "multihost:0:2"]),
 ])
 def test_unported_modes_raise(kw):
     """What is still to be ported raises, naming its ROADMAP item: the
     appearance index (in SlamSystem, and in the keyframe graph of a VO
-    engine) and the sparse PGO above the dense threshold."""
+    engine), the sparse PGO above the dense threshold, and the runner's
+    `multihost:` (the dataset runner itself is ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if "pgo_vertices" in kw:
+        if "argv" in kw:
+            from lsd_slam_tpu_torch.io import runner
+            runner.main(kw["argv"])
+        elif "pgo_vertices" in kw:
             pg = PoseGraph(device="cpu")
             for _ in range(kw["pgo_vertices"]):
                 pg.add_vertex(np.array([1, 0, 0, 0, 0, 0, 0, 1.0]))
