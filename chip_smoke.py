@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises, so the script exits non-zero and
-prints no ok line:
+Phases (13, 14 and 16 run right after 3, 15 after 10); any failure
+raises, so the script exits non-zero and prints no ok line:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every CUDA kernel of the port, from the sources in the
                checkout (one nvcc per source, all started together);
@@ -17,6 +17,18 @@ prints no ok line:
                and the host microseconds per regularize() call, fused
                against the unfused path (accumulators + torch epilogue);
                the checks run at the config's diff_fac (1) and at 2;
+               then [scatter]: the order-fixed scatter-sum
+               (`ops.scatter.ordered_index_add`, the `segment_sum` kernel
+               after a stable sort) on the card equals the CPU's
+               `index_add_` on the same inputs bit for bit, twice, and its
+               plain version exactly, at the main path's shapes (1e5
+               sources into 1e3 targets, propagate's pass 2 at 640x480, the
+               PGO's 7x7 blocks, the appearance descriptor's histograms and
+               tile sums for an add and a query); CUDA-event times at
+               propagate's shape of the kernel, sort + kernel, the plain
+               version and the atomic `index_add_`, and at the appearance
+               shapes of all but the plain version; a target out of range
+               fails the kernel's device-side assert (in a child process);
   4. VO      — the sequential visual-odometry loop at 640x480 (default
                LSDConfig(), PlaneScene(seed=7), the orbit trajectory of the
                stored JAX reference), gt_depth_init, track_frame for N-1
@@ -48,6 +60,8 @@ prints no ok line:
                keyframe, PGO ms, host syncs per frame, and, from a second
                pass under torch.profiler, the device busy share and the
                top kernels; the fused entry is checked on its final state.
+               The second pass must build the same graph and give the
+               first pass's trajectories bit for bit (BIT_EQUAL_RUNS).
   6. SLAM loop — the same scenario and checks at 160x128 on the 36-frame
                out-and-back loop of tests/test_torch_slam.py
                (PlaneScene(seed=13), loop_trajectory(36), the aggressive
@@ -110,8 +124,10 @@ prints no ok line:
                kf_*.npz per keyframe with finite idepth, poses.jsonl,
                graph.jsonl, pointcloud.ply whose header count is the number
                of points it holds, > 0); >= 2 keyframes; the runner's
-               keyframe ids and edge pairs equal the in-process run's and
-               its trajectory lies within [slam]'s bounds of it. Then
+               keyframe ids and edge pairs equal the in-process run's, and
+               its TUM rows (estimated_poses.txt, after finalize's PGO) lie
+               within 1e-6 (the file's 6 decimals) of the in-process
+               trajectory. Then
                `checkpoint:` on frames 0-29 and `resume:` on a folder of
                frames 30-59 (the trajectory grows to every frame, tracked),
                and `hz:30 pipeline:3` on the whole folder (every frame
@@ -119,7 +135,34 @@ prints no ok line:
                launches the fused kernel, never the accumulators entry, and
                calls no plain version; its counts are the `cli_launches` of
                the kernels line and part of its `launches`. Prints each
-               run's fps from its `done:` line.
+               run's fps from its `done:` line. The hz:0 runner's published
+               poses (poses.jsonl, full precision) must equal what
+               track_frame returns in the in-process run, bit for bit.
+ 13. pgo-sparse — PoseGraph.optimize(12) above dense_threshold (the
+               block-Jacobi PCG of mapping/sparse_pgo.py) on the circle
+               graphs of tests/test_pose_graph.py:171 at 340 and 1000
+               vertices, on the card and the CPU port: within 8e-3 of the
+               ground truth, within PGO_GAP of the CPU port, one pull per GN
+               iteration and one of the poses, none inside the CG loop; ms
+               per solve and per GN iteration, CG iterations.
+ 14. appearance — the appearance descriptor of a 640x480 frame (level 2,
+               16 rolls), card against the CPU port within APPEARANCE_ATOL;
+               an index of 1000 keyframes on the card: ms per add and per
+               query, and a 180-degree-rolled revisit retrieves its place;
+               then SlamSystem(use_fabmap=True)'s find_candidates at
+               640x480 on six keyframes chained by constraints: a query
+               whose pose drifted away gets no Euclidean candidate, and the
+               appearance hit plus its two graph neighbours, on the card as
+               on the CPU port.
+ 15. slam-fabmap — [slam]'s scenario with `use_fabmap=True` through
+               SlamSystem, against
+               lsd_slam_tpu_torch/reference_data/slam_bench_640x480_fabmap.json
+               with [slam]'s checks and bounds; the index holds every
+               keyframe and the constraint search queried it.
+ 16. warmup  — two fresh processes (`--warmup-run without|with`): a new
+               640x480 engine's gt_depth_init and first frame steps, with
+               and without `warmup(cam, cfg)` before it; warm-up's report
+               and its kernel launches.
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -135,6 +178,11 @@ L2-warm and cold.
 
 runs `lsd_slam_tpu_torch.io.runner.main` with those arguments and prints
 its kernel counts as the last line (what [cli] runs for each runner call).
+
+    python3 chip_smoke.py --warmup-run with|without
+
+times a fresh engine's first calls with or without warm-up first and
+prints them as the last line (what [warmup] runs in each process).
 
     python3 chip_smoke.py --pipeline-turns
 
@@ -173,7 +221,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the camera centre (scene units; depths are 1.5-4.5) and the rotation
 # (rad). The port on the CPU stays within 4.7e-5 (centre) and 1.2e-5 rad of
 # the reference (tests/make_torch_vo_reference.py --check-port); the bound
-# adds a 20x margin for the card's other reduction and atomic-add orders.
+# adds a 20x margin for the card's other reduction orders.
 TRAJ_BOUND = 1e-3
 
 # H100 SXM: HBM3 rate and the f32 rate outside the tensor cores
@@ -196,11 +244,21 @@ PIPE_C, PIPE_R = 1.25e-2, 8e-3
 # --noise-seed 2; --check-jax --noise-seed 1; for the loop also --threads
 # 1) lie up to 4.86e-3 / 2.34e-3 rad from it on the bench and 3.06e-3 /
 # 1.16e-3 rad on the loop; each bound is about twice that.
+# The fabmap run (use_fabmap=True) is [slam]'s scenario against its own
+# JAX reference, which builds [slam]'s graph; its rounding variants (the
+# port with 8 and 3 threads, + noise) keep that graph too.
 SLAM_RUNS = {
     "slam": ("slam_bench_640x480.json", 1e-2, 5e-3),
     "slam-loop": ("slam_loop_160x128.json", 6e-3, 2.5e-3),
     "slam-pipelined": ("slam_bench_640x480_lag3.json", PIPE_C, PIPE_R),
+    "slam-fabmap": ("slam_bench_640x480_fabmap.json", 1e-2, 5e-3),
 }
+# the runs whose profiled second pass must give the first pass's bits:
+# the sequential ones (lag 0 and lag 3), where the port is deterministic on
+# the card
+BIT_EQUAL_RUNS = ("slam", "slam-pipelined")
+# segment_sum launches of each phase's run (counts zeroed just before)
+SEGMENT_LAUNCHES = {}
 # ... and the bound of the card's ATE (raw and after PGO) as a multiple of
 # the reference's: the same runs reach 1.05x on the bench, 1.16x on the loop
 SLAM_ATE_RATIO = 1.5
@@ -231,6 +289,15 @@ UNDISTORT_CASES = {
     "fov-full": ([0.7, 0.9333, 0.5, 0.5, 0.9], "full"),
     "opencv-crop": ([0.7, 0.9333, 0.5, 0.5, -0.2, 0.05, 0.0, 0.0], "crop"),
 }
+# the sparse PGO, card against the CPU port, max |log| per vertex: both
+# run the same f32 CG, whose last iterations creep to tol = 1e-7 at f32's
+# floor, so the two stop a few iterations apart (on the CPU the port and
+# JAX's solve lie within 1e-4, tests/test_torch_sparse_pgo.py)
+PGO_GAP = 1e-4
+# the appearance descriptor, card against the CPU port (unit vectors;
+# tests/test_torch_appearance.py holds the CPU port to JAX at the same
+# bound)
+APPEARANCE_ATOL = 1e-5
 # the dataset runner's phase: frames of [slam]'s sequence, and where the
 # checkpoint run stops and the resumed one starts
 CLI_FRAMES, CLI_SPLIT = 60, 30
@@ -548,7 +615,7 @@ def run_slam(torch, ref, sequential=True, sync_each=True):
         keyframe=dataclasses.replace(cfg.keyframe, **ref["keyframe_config"]),
         system=dataclasses.replace(
             cfg.system, pipeline_lag=ref.get("pipeline_lag", 0),
-            sequential=sequential))
+            sequential=sequential, use_fabmap=ref.get("use_fabmap", False)))
     sys_ = SlamSystem(cam, cfg)  # SLAM on, on the card
     assert sys_.device.type == "cuda" and sys_.backend is not None
     torch.cuda.synchronize()
@@ -644,6 +711,7 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     second pass under torch.profiler. Returns (fused launches on the path,
     the final state's planes for the kernel check, the busy share or
     None)."""
+    from lsd_slam_tpu_torch.ops import scatter
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
 
     ref_file, traj_bound, rot_bound = SLAM_RUNS[tag]
@@ -651,9 +719,10 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     n = ref["n_frames"]
     sync_each = ref.get("pipeline_lag", 0) == 0
     with counted_plain() as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
         run = run_slam(torch, ref, sync_each=sync_each)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
+        SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     st = sys_.stats.snapshot()
@@ -662,7 +731,8 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     ate = float(ate_rmse(traj[:n], poses))
     ate_opt = float(ate_rmse(opt[:n], poses))
     log(f"[{tag}] N={n} {ref['width']}x{ref['height']} pipeline_lag="
-        f"{ref.get('pipeline_lag', 0)} keyframes={kfs} "
+        f"{ref.get('pipeline_lag', 0)} use_fabmap="
+        f"{ref.get('use_fabmap', False)} keyframes={kfs} "
         f"(reference {ref['keyframe_ids']})")
     log(f"[{tag}] parents {parents} (reference {ref['parent_ids']}); "
         f"loop-closure edges {loops} (reference {ref['nonparent_edges']})")
@@ -685,6 +755,16 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
             f"{int(dc.argmax())}), max rot diff {da.max():.4g} rad; bounds "
             f"{traj_bound:g} / {rot_bound:g}")
     log_run(tag, run, n, fused, acc, plain_calls[0])
+    index = sys_.backend.graph.appearance
+    log(f"[{tag}] segment_sum launches {SEGMENT_LAUNCHES[tag]}"
+        + ("" if index is None else
+           f"; appearance index holds {len(index)} keyframes, answered "
+           f"{index.n_queries} queries of the constraint search with "
+           f"{index.n_hits} hits"))
+    assert (index is not None) == ref.get("use_fabmap", False)
+    if index is not None:
+        assert len(index) == len(kfs) and index.n_queries > 0, (
+            len(index), len(kfs), index.n_queries)
     assert kfs == ref["keyframe_ids"], (kfs, ref["keyframe_ids"])
     assert parents == ref["parent_ids"], (parents, ref["parent_ids"])
     assert edges == ref["edges"], "edge pairs differ from the reference"
@@ -701,12 +781,30 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
             f"{key} off the JAX reference: centre {dc}, rotation {da}")
     assert fused >= n and acc == 0 and plain_calls[0] == 0, (
         fused, acc, plain_calls)
+    assert SEGMENT_LAUNCHES[tag] > 0, "no segment_sum launch on the path"
     share = None
     if trace:
-        share = trace_device(
-            torch, f"{tag}-trace",
-            lambda: run_slam(torch, ref, sync_each=sync_each).total_s, n - 1,
-            12)
+        # the profiled pass runs the scenario again: it must build the same
+        # graph and, in sequential mode, the same bits
+        again = {}
+
+        def traced():
+            again["run"] = run_slam(torch, ref, sync_each=sync_each)
+            return again["run"].total_s
+        share = trace_device(torch, f"{tag}-trace", traced, n - 1, 12)
+        if "run" not in again:
+            traced()
+        s2 = again["run"].sys
+        same_graph = graph_of(s2) == (kfs, parents, edges, loops)
+        diffs = [float(np.abs(a - b).max()) if a.shape == b.shape else
+                 float("inf") for a, b in (
+                     (s2.trajectory_array(), traj),
+                     (s2.optimized_trajectory_array(), opt))]
+        log(f"[{tag}] second pass (the profiled one) against the first: "
+            f"graph equal {same_graph}, max |difference| of the trajectory "
+            f"{diffs[0]:g}, of the optimised trajectory {diffs[1]:g}")
+        if tag in BIT_EQUAL_RUNS:
+            assert same_graph and diffs == [0.0, 0.0], (same_graph, diffs)
     s = sys_.map.state
     return fused, [s.idepth, s.var, s.valid, s.validity, s.idepth_smoothed,
                    s.var_smoothed, s.blacklisted], share
@@ -723,10 +821,13 @@ def threaded_phase(torch, stencil, counted_plain, tag):
     ref = load_ref(ref_file)
     ref["keyframe_config"] = dict(ref["keyframe_config"], **keyframe)
     n = ref["n_frames"]
+    from lsd_slam_tpu_torch.ops import scatter
+
     with counted_plain() as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
         run = run_slam(torch, ref, sequential=False, sync_each=False)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
+        SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     n_edges = sys_.backend.graph.pose_graph.n_edges
@@ -931,12 +1032,14 @@ def counted_runner(argv) -> int:
     line, behind COUNTS_TAG."""
     from lsd_slam_tpu_torch.io import runner
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
+    from lsd_slam_tpu_torch.ops import scatter
 
     with counted_plain(stencil) as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
         runner.main(argv)
         counts = dict(fused=stencil.FUSED_LAUNCHES,
-                      accumulators=stencil.LAUNCHES, plain=plain_calls[0])
+                      accumulators=stencil.LAUNCHES, plain=plain_calls[0],
+                      segment_sum=scatter.LAUNCHES)
     log(COUNTS_TAG + json.dumps(counts))
     return 0
 
@@ -1065,10 +1168,10 @@ def cli_phase(torch, card):
 
     from lsd_slam_tpu_torch.config import LSDConfig
     from lsd_slam_tpu_torch.io import ImageFolderSource
+    from lsd_slam_tpu_torch.io.trajectory import save_tum_trajectory
     from lsd_slam_tpu_torch.system import SlamSystem
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
 
-    _, c_bound, r_bound = SLAM_RUNS["slam"]
     root = tempfile.mkdtemp(prefix="lsd_cli_")
     try:
         t0 = time.perf_counter()
@@ -1086,6 +1189,10 @@ def cli_phase(torch, card):
                                        f"out:{out}"])
         traj, kfs, edges, n_pts, n_poses = _runner_outputs(out, CLI_FRAMES)
         launches = {"hz0": counts["fused"]}
+        seg = {"hz0": counts["segment_sum"]}
+        with open(os.path.join(out, "poses.jsonl")) as f:
+            published = {p["id"]: p["cam_to_world"]
+                         for p in map(json.loads, f)}
         log(f"[cli] runner hz:0: {fps:g} fps ({CLI_FRAMES} frames, decode "
             f"{many_ms:.2f} ms per frame on this host), keyframes {kfs}, "
             f"{len(edges)} edges, {n_pts} points, {n_poses} tracked poses "
@@ -1100,32 +1207,53 @@ def cli_phase(torch, card):
         src = ImageFolderSource(frames, calib, device="cuda")
         t0 = time.perf_counter()
         sys_ = SlamSystem(src.camera, LSDConfig(width=640, height=480))
+        returned = {}    # what track_frame returns: what the runner publishes
         for i, ts, img in src:
             if i == 0:
                 sys_.random_init(img, i, ts)
             else:
-                sys_.track_frame(img, i, ts)
+                returned[i] = sys_.track_frame(img, i, ts)
         sys_.finalize()
         torch.cuda.synchronize()
         in_s = time.perf_counter() - t0
         ikfs = [kf.id for kf in sys_.keyframes]
         iedges = [(e.first.id, e.second.id) for e in sys_.backend.graph.edges]
-        mine = np.asarray([p for _, _, p in sys_.trajectory])
-        dc = np.linalg.norm(traj[:, 1:4] - mine[:, 4:7], axis=1)
-        da = np.asarray([rotation_angle(np.r_[a[7], a[4:7]], b[0:4])
-                         for a, b in zip(traj, mine)])
+        # the runner's TUM rows (written after finalize's PGO, 6 decimals)
+        # against the in-process trajectory in the same columns: equal bits
+        # differ by at most the file's rounding, 5e-7
+        mine = np.asarray([[ts, *p[4:7], *p[1:4], p[0]]
+                           for ts, _, p in sys_.trajectory])
+        tum_gap = (float(np.abs(traj - mine).max())
+                   if traj.shape == mine.shape else float("inf"))
+        mine_txt = os.path.join(root, "in_process_poses.txt")
+        save_tum_trajectory(mine_txt, sys_.trajectory)
+        with open(mine_txt) as f_mine, open(os.path.join(
+                out, "estimated_poses.txt")) as f_run:
+            same_text = f_mine.read() == f_run.read()
+        # the runner publishes what track_frame returns for each tracked
+        # frame at full precision (poses.jsonl); the same folder in this
+        # process must give the same bits (TUM rows hold 6 decimals)
+        assert sorted(published) == sorted(
+            fid for fid, p in returned.items() if p is not None)
+        exact = np.asarray([np.abs(np.asarray(published[fid]) - p).max()
+                            for fid, p in returned.items() if p is not None])
         ate = float(ate_rmse(sys_.trajectory_array(), gt))
         log(f"[cli] in-process: {CLI_FRAMES / in_s:.3f} fps, keyframes "
             f"{ikfs}, {len(iedges)} edges, tracking good "
             f"{sys_.tracking_is_good}, ATE {ate:.6g} (scale-aligned); "
-            f"runner vs in-process: max |centre| {dc.max():.4g}, max rot "
-            f"{da.max():.4g} rad (bounds {c_bound:g} / {r_bound:g})")
+            f"runner vs in-process: max |difference| of the "
+            f"{len(traj)} TUM rows {tum_gap:.3g} (bound 1e-6, the file's "
+            f"6 decimals), the file byte-identical to the in-process "
+            f"trajectory written the same way {same_text}; max "
+            f"|difference| of the {len(exact)} published poses "
+            f"{exact.max():g} (bound 0)")
         assert sys_.tracking_is_good, "the in-process run ends lost"
         assert len(kfs) >= 2, kfs
         assert kfs == ikfs, (kfs, ikfs)
         assert edges == iedges, (edges, iedges)
-        assert dc.max() <= c_bound and da.max() <= r_bound, (dc.max(),
-                                                             da.max())
+        assert len(exact) == CLI_FRAMES - 1 and exact.max() == 0.0, (
+            len(exact), exact.max())
+        assert tum_gap <= 1e-6, tum_gap
 
         # checkpoint on frames 0..CLI_SPLIT-1, resume on the rest
         halves = [os.path.join(root, n) for n in ("first", "second")]
@@ -1139,11 +1267,13 @@ def cli_phase(torch, card):
                                     f"out:{os.path.join(root, 'out_a')}",
                                     f"checkpoint:{ckpt}"])
         launches["checkpoint"] = counts["fused"]
+        seg["checkpoint"] = counts["segment_sum"]
         stdout, fps_b, counts = _runner([f"files:{halves[1]}",
                                          f"calib:{calib}",
                                          f"out:{os.path.join(root, 'out_b')}",
                                          f"resume:{ckpt}"])
         launches["resume"] = counts["fused"]
+        seg["resume"] = counts["segment_sum"]
         traj_b, kfs_b, _, _, n_b = _runner_outputs(
             os.path.join(root, "out_b"), CLI_FRAMES, need_graph=False)
         assert "resumed from" in stdout
@@ -1160,6 +1290,7 @@ def cli_phase(torch, card):
                                          f"out:{os.path.join(root, 'out_p')}",
                                          "hz:30", "pipeline:3"])
         launches["hz30_pipeline3"] = counts["fused"]
+        seg["hz30_pipeline3"] = counts["segment_sum"]
         traj_p, kfs_p, edges_p, n_pts_p, _ = _runner_outputs(
             os.path.join(root, "out_p"), CLI_FRAMES)
         pairs = {tuple(sorted(e)) for e in edges_p}
@@ -1170,10 +1301,494 @@ def cli_phase(torch, card):
             f"{launches['hz30_pipeline3']} fused launches; {card}")
         log(f"[cli] regularize_fused launches per runner run {launches}, "
             f"{sum(launches.values())} in all; no regularize_accumulators "
-            f"launch, no plain-version call")
-        return launches
+            f"launch, no plain-version call; segment_sum launches {seg}")
+        return launches, seg
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- the order-fixed scatter-sum, the sparse PGO, the appearance index,
+# ---- warm-up
+
+def scatter_cases(torch, rng):
+    """(name, buf, idx, vals) on the CPU, at the shapes the main path gives
+    `ordered_index_add`: many sources per target (1e5 into 1e3, signed,
+    magnitudes over six decades); propagate's pass 2 at 640x480 (one source
+    per pixel, sent to a pixel within 2 of it when compatible, else +0.0 to
+    its own pixel; non-negative terms as id/var, 1/var, validity, count);
+    the dense PGO's 7x7 blocks of a 10-vertex graph into its 100 (i, j)
+    targets, the sparse PGO's diagonal blocks at 1000 vertices, and the
+    appearance descriptor's scatters at 640x480 (level 2: 160x120 pixels)
+    for one roll (an `add`) and for 16 (a query): the soft-binned
+    histograms (lower bins, then upper bins, into tiles x 8 bins per roll)
+    and the tile sums (every pixel into its tile, about 1,200 sources per
+    target, the longest segments of the port)."""
+    def signed(*shape):
+        return (rng.standard_normal(shape)
+                * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
+
+    cases = []
+    idx = rng.integers(0, 1000, 100_000)
+    cases.append(("dup-1e5-into-1e3", np.zeros(1000, np.float32), idx,
+                  signed(100_000)))
+    h, w = 480, 640
+    ys, xs = np.divmod(np.arange(h * w), w)
+    keep = rng.uniform(size=h * w) < 0.6
+    ty = np.clip(ys + rng.integers(-2, 3, h * w), 0, h - 1)
+    tx = np.clip(xs + rng.integers(-2, 3, h * w), 0, w - 1)
+    idx = np.where(keep, ty * w + tx, np.arange(h * w))
+    for k, hi in enumerate((1e3, 1e2, 50.0, 1.0)):
+        vals = np.where(keep, rng.uniform(0, hi, h * w), 0.0) if k < 3 \
+            else keep.astype(np.float64)
+        cases.append((f"propagate-640x480-{k}", np.zeros(h * w, np.float32),
+                      idx, vals.astype(np.float32)))
+    n, e = 10, 24
+    a, b = rng.integers(0, n, e), rng.integers(0, n, e)
+    cases.append(("pgo-dense-H", np.zeros((n * n, 7, 7), np.float32),
+                  a * n + b, signed(e, 7, 7)))
+    n, e = 1000, 1058
+    cases.append(("pgo-sparse-D", np.zeros((n, 7, 7), np.float32),
+                  rng.integers(0, n, e), signed(e, 7, 7)))
+    h, w = 120, 160
+    ys, xs = np.mgrid[0:h, 0:w]
+    tile = ((ys * 4 // h) * 4 + xs * 4 // w).reshape(-1)
+    disc = (((xs - (w - 1) / 2) ** 2 + (ys - (h - 1) / 2) ** 2)
+            <= ((h - 1) / 2) ** 2).reshape(-1)
+    for what, n_rot in (("add", 1), ("query", 16)):
+        cell = (np.arange(n_rot)[:, None] * 16 + tile).reshape(-1)
+        inb = np.tile(disc, n_rot)
+        mag = np.where(inb, rng.exponential(20.0, cell.size), 0.0)
+        fb = rng.uniform(size=cell.size)
+        b0 = rng.integers(0, 8, cell.size)
+        cases.append((f"appearance-{what}-hist",
+                      np.zeros(n_rot * 16 * 8, np.float32),
+                      np.concatenate([cell * 8 + b0,
+                                      cell * 8 + (b0 + 1) % 8]),
+                      np.concatenate([mag * (1 - fb), mag * fb])
+                      .astype(np.float32)))
+        cases.append((f"appearance-{what}-tiles",
+                      np.zeros(n_rot * 16, np.float32), cell,
+                      np.where(inb, rng.uniform(0, 255, cell.size), 0.0)
+                      .astype(np.float32)))
+    return cases
+
+
+def scatter_phase(torch, card):
+    """Phase [scatter]: on every case the card's `ordered_index_add` equals
+    the CPU's `index_add_` on the same inputs bit for bit, twice (so run to
+    run), and its kernel equals its plain version on the card; the atomic
+    `index_add_` on the card is compared too (how many values differ).
+    Then CUDA-event times at propagate's shape (one 1-D call): the kernel
+    with the sort given, sort + kernel, the plain version and the atomic
+    `index_add_`; the kernel, sort + kernel and the atomic `index_add_` at
+    the appearance descriptor's shapes; and a target out of range fails
+    the kernel's device-side assert, in a process of its own (the assert
+    ends that process's CUDA context). Returns the kernel line's
+    numbers."""
+    from lsd_slam_tpu_torch.ops import scatter
+
+    rng = np.random.default_rng(0)
+    err = 0.0
+    for name, buf, idx, vals in scatter_cases(torch, rng):
+        b, i, v = (torch.as_tensor(x) for x in (buf, idx, vals))
+        want = b.clone().index_add_(0, i, v)
+        bc, ic, vc = b.cuda(), i.cuda(), v.cuda()
+        got = [scatter.ordered_index_add(bc.clone(), ic, vc).cpu()
+               for _ in range(2)]
+        order = scatter.sort_index(ic)
+        plain = scatter.segment_sum_plain(
+            bc.clone().view(b.shape[0], -1), order,
+            vc.reshape(v.shape[0], -1)).cpu().reshape(b.shape)
+        atomic = bc.clone().index_add_(0, ic, vc).cpu()
+        torch.cuda.synchronize()
+        seg = int(torch.unique(i, return_counts=True)[1].max())
+        log(f"[scatter] {name}: {tuple(v.shape)} into {tuple(b.shape)} "
+            f"(longest segment {seg}): card == CPU index_add_ "
+            f"{[torch.equal(g, want) for g in got]}, kernel == plain "
+            f"{torch.equal(got[0], plain)}; atomic index_add_ on the card "
+            f"differs from the CPU at {int((atomic != want).sum())} values")
+        assert all(torch.equal(g, want) for g in got), name
+        assert torch.equal(got[0], plain), name
+        err = max(err, float((got[0] - plain).abs().max()))
+
+    # times at propagate's shape: one of pass 2's four 1-D calls
+    _, buf, idx, vals = scatter_cases(torch, np.random.default_rng(0))[1]
+    bc, ic, vc = (torch.as_tensor(x, device="cuda") for x in (buf, idx,
+                                                              vals))
+    order = scatter.sort_index(ic)
+    t = dict(
+        kernel=time_gpu(torch, lambda: scatter.ordered_index_add(
+            bc, order, vc), 50, 40),
+        sort_and_kernel=time_gpu(torch, lambda: scatter.ordered_index_add(
+            bc, ic, vc), 20, 40),
+        plain=time_gpu(torch, lambda: scatter.segment_sum_plain(
+            bc.view(-1, 1), order, vc.view(-1, 1)), 2, 10),
+        atomic_index_add=time_gpu(torch, lambda: bc.index_add_(0, ic, vc),
+                                  50, 40))
+    m = t_len = idx.shape[0]
+    # keys + perm (int64) and the values read once, the targets read and
+    # written once
+    nbytes = 8 * m + 8 * m + 4 * m + 2 * 4 * t_len
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[scatter] propagate 640x480, one 1-D call (CUDA events, ms): "
+        f"{json.dumps(t)}; bound {bound_ms:.5f} ms (bytes: {nbytes}); "
+        f"{card}")
+
+    app_t = {}
+    for name, buf, idx, vals in scatter_cases(torch,
+                                              np.random.default_rng(0)):
+        if not name.startswith("appearance-"):
+            continue
+        bc, ic, vc = (torch.as_tensor(x, device="cuda")
+                      for x in (buf, idx, vals))
+        order = scatter.sort_index(ic)
+        m, t_len = idx.shape[0], buf.shape[0]
+        app_t[name] = dict(
+            kernel=time_gpu(torch, lambda: scatter.ordered_index_add(
+                bc, order, vc), 5, 10),
+            sort_and_kernel=time_gpu(torch, lambda: scatter.ordered_index_add(
+                bc, ic, vc), 5, 10),
+            atomic_index_add=time_gpu(torch, lambda: bc.index_add_(
+                0, ic, vc), 20, 10),
+            bound=(20 * m + 8 * t_len) / HBM_BYTES_PER_S * 1e3,
+            longest_segment=int(np.bincount(idx).max()))
+    log(f"[scatter] the appearance descriptor's shapes at 640x480 (CUDA "
+        f"events, ms per call; bound = bytes over {HBM_BYTES_PER_S:g} B/s): "
+        f"{json.dumps(app_t)}; {card}")
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import torch\n"
+         "from lsd_slam_tpu_torch.ops import scatter\n"
+         "buf = torch.zeros(4, device='cuda')\n"
+         "idx = torch.tensor([0, 4, 2], device='cuda')\n"
+         "scatter.ordered_index_add(buf, idx, torch.ones(3, device='cuda'))\n"
+         "torch.cuda.synchronize()\n"
+         "print('no error')\n"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    tail = (proc.stdout + proc.stderr)[-600:]
+    log(f"[scatter] target 4 into 4 rows on the card: exit "
+        f"{proc.returncode}, device-side assert "
+        f"{'device-side assert' in proc.stderr}")
+    assert proc.returncode != 0 and "no error" not in proc.stdout, tail
+    assert "device-side assert" in proc.stderr, tail
+    return err, t, bound_ms, app_t
+
+
+def circle_graph(n, seed=7, sigma=0.01):
+    """tests/test_pose_graph.py's large graph at n vertices: a circle of
+    radius 2, every vertex but the first perturbed by exp(N(0, sigma)) on
+    its motion coordinates, the chain, the loop closure and a closure
+    every 17 vertices to the vertex 11 ahead; info 100 I. Returns
+    (vertices, edges, ground truth)."""
+    import torch
+    from lsd_slam_tpu_torch import lie
+    from lsd_slam_tpu_torch.lie import np_sim3 as nps
+
+    gt = []
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        gt.append(np.concatenate([[np.cos(a / 2), 0, np.sin(a / 2), 0],
+                                  [2 * np.sin(a), 0, 2 * (1 - np.cos(a))],
+                                  [1.0]]))
+    rng = np.random.default_rng(seed)
+    verts = [gt[0]]
+    for p in gt[1:]:
+        noise = np.concatenate([rng.normal(0, sigma, 6), [0.0]])
+        pert = lie.sim3_exp(torch.as_tensor(noise, dtype=torch.float32))
+        verts.append(nps.sim3_mul(pert.numpy().astype(np.float64), p))
+    pairs = ([(i, i + 1) for i in range(n - 1)] + [(0, n - 1)]
+             + [(a, a + 11) for a in range(0, n - 20, 17)])
+    rel = [nps.sim3_mul(nps.sim3_inverse(gt[a]), gt[b]) for a, b in pairs]
+    return verts, [(a, b, r, np.eye(7) * 100, 1e6)
+                   for (a, b), r in zip(pairs, rel)], gt
+
+
+def pgo_sparse_phase(torch, card):
+    """Phase [pgo-sparse]: PoseGraph.optimize(12) on the circle graphs of
+    tests/test_pose_graph.py:171 at 340 and 1000 vertices (above
+    dense_threshold: the block-Jacobi PCG path), on the card and on the CPU
+    port. Checks: every vertex within 8e-3 of the ground truth (JAX's bound
+    at 340), the card within PGO_GAP of the CPU port, and host pulls = one
+    per GN iteration + the final poses: no pull inside the CG loop.
+    Returns the segment-sum launches."""
+    from lsd_slam_tpu_torch.lie import np_sim3 as nps
+    from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
+    from lsd_slam_tpu_torch.ops import scatter
+
+    launches = 0
+    for n in (340, 1000):
+        verts, edges, gt = circle_graph(n)
+        graphs = {}
+        for dev in ("cuda", "cpu"):
+            g = PoseGraph(device=dev)
+            for i, p in enumerate(verts):
+                g.add_vertex(p, fixed=(i == 0))
+            for e in edges:
+                g.add_edge(*e)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                scatter.LAUNCHES = 0
+            t0 = time.perf_counter()
+            g.optimize(12)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches += scatter.LAUNCHES
+            graphs[dev] = (g, time.perf_counter() - t0)
+        g, secs = graphs["cuda"]
+        cg = g.cg_iters
+        err = max(nps.sim3_log_norm(nps.sim3_mul(nps.sim3_inverse(p), q))
+                  for p, q in zip(g.poses, gt))
+        gap = max(nps.sim3_log_norm(nps.sim3_mul(nps.sim3_inverse(p), q))
+                  for p, q in zip(g.poses, graphs["cpu"][0].poses))
+        log(f"[pgo-sparse] {n} vertices, {len(edges)} edges: max |log| to "
+            f"the ground truth {err:.4g} (bound 8e-3), to the CPU port "
+            f"{gap:.4g} (bound {PGO_GAP:g}); {len(cg)} GN iterations, CG "
+            f"iterations {cg}; {secs * 1e3:.1f} ms per solve, "
+            f"{secs * 1e3 / len(cg):.1f} ms per GN iteration (CPU port "
+            f"{graphs['cpu'][1] * 1e3:.1f} ms per solve); host pulls "
+            f"{g.n_pulls} = {len(cg)} GN + 1, {g.n_pulls / len(cg):.2f} per "
+            f"GN iteration; segment_sum launches {scatter.LAUNCHES}; {card}")
+        assert err < 8e-3, (n, err)
+        assert gap < PGO_GAP, (n, gap)
+        assert g.n_pulls == len(cg) + 1, (g.n_pulls, cg)
+    return launches
+
+
+def appearance_phase(torch, card):
+    """Phase [appearance]: the descriptor of a 640x480 frame of [slam]'s
+    sequence at level 2 under all 16 rolls, card against the CPU port
+    (within APPEARANCE_ATOL); then an index of 1000 keyframes on the card
+    (160x120 level-2 images of six random plane waves each; the smoothed
+    noise of tests/test_appearance.py's 200-keyframe test is too alike at
+    1000 for the ratio test): ms per `add` and per `query`, and a noisy
+    revisit of keyframe 300 rolled by 180 degrees must retrieve it (on
+    the CPU port: best 0.9995, second 0.913, ratio 1.095 > 1.08). Returns
+    the segment-sum launches."""
+    from lsd_slam_tpu_torch.frames import build_frame
+    from lsd_slam_tpu_torch.mapping import appearance as app
+    from lsd_slam_tpu_torch.ops import scatter
+    from lsd_slam_tpu_torch.utils import synth
+
+    cam = synth.default_camera(640, 480)
+    img, _ = synth.render_realistic(synth.BenchScene(seed=0), cam,
+                                    synth.bench_trajectory(130)[40],
+                                    frame_index=40, noise_sigma=0.0,
+                                    device="cuda")
+    pyr = build_frame(img, 5)
+    planes = [pyr.images[2], pyr.gx[2], pyr.gy[2]]
+    thetas = torch.as_tensor(np.linspace(0, 2 * np.pi, app.N_ROTATIONS,
+                                         endpoint=False), dtype=torch.float32)
+    scatter.LAUNCHES = 0
+    got = app._descriptor_rotations(*planes, thetas.cuda())
+    torch.cuda.synchronize()
+    launches = scatter.LAUNCHES
+    want = app._descriptor_rotations(*(p.cpu() for p in planes), thetas)
+    err = float((got.cpu() - want).abs().max())
+    desc_ms = time_gpu(torch, lambda: app._descriptor_rotations(
+        *planes, thetas.cuda()), 10, 20)
+    log(f"[appearance] 640x480 level-2 descriptors ({tuple(got.shape)}), "
+        f"card vs CPU port: max abs err {err:.3g} (bound "
+        f"{APPEARANCE_ATOL:g}); {desc_ms:.4f} ms for the 16 rolls (CUDA "
+        f"events)")
+    assert err <= APPEARANCE_ATOL, err
+
+    rng = np.random.default_rng(0)
+    h, w = 120, 160
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+
+    def place():
+        """Six plane waves of random direction, frequency and phase: each
+        place has its own gradient-orientation histogram."""
+        img = np.full((h, w), 128.0)
+        for _ in range(6):
+            th, f = rng.uniform(0, np.pi), rng.uniform(0.02, 0.12)
+            img += rng.uniform(10, 30) * np.sin(
+                2 * np.pi * f * (np.cos(th) * xs + np.sin(th) * ys)
+                + rng.uniform(0, 2 * np.pi))
+        return img
+
+    def fake_pyr(im):
+        g = np.gradient(im)
+        return types.SimpleNamespace(**{
+            key: {2: torch.as_tensor(np.ascontiguousarray(a),
+                                     dtype=torch.float32, device="cuda")}
+            for key, a in (("images", im), ("gx", g[1] * 2),
+                           ("gy", g[0] * 2))})
+
+    base = [place() for _ in range(1000)]
+    pyrs = [fake_pyr(b) for b in base]
+    index = app.AppearanceIndex(device="cuda")
+    torch.cuda.synchronize()
+    scatter.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for k, p in enumerate(pyrs):
+        index.add(k * 10, p)
+    torch.cuda.synchronize()
+    add_ms = (time.perf_counter() - t0) * 1e3 / len(pyrs)
+    q = fake_pyr(np.rot90(base[300], 2) + rng.normal(0, 2.0, (h, w)))
+    q_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        hit = index.query(q, query_id=1_000_000)
+        q_ms.append((time.perf_counter() - t0) * 1e3)
+        assert hit == 3000, hit
+    launches += scatter.LAUNCHES
+    log(f"[appearance] index of {len(index)} keyframes (capacity "
+        f"{index._capacity}): {add_ms:.3f} ms per add, query "
+        f"{statistics.median(q_ms):.3f} ms median of 5 (one (N,) pull); a "
+        f"180-degree roll of keyframe 3000 retrieves {hit}; segment_sum "
+        f"launches {launches}; {card}")
+
+    # the engine's merge path at full width, card against the CPU port
+    scatter.LAUNCHES = 0
+    got = appearance_merge(torch, "cuda")
+    launches += scatter.LAUNCHES
+    want = appearance_merge(torch, "cpu")
+    log(f"[appearance] find_candidates at 640x480 (use_fabmap=True, six "
+        f"keyframes chained by constraints, a query rolled by 0.3 rad "
+        f"whose pose drifted away): card {got}, CPU port {want}")
+    assert got == want, (got, want)
+    euclid, cands, fabmap_id, n_queries, n_hits = got
+    assert euclid == [] and fabmap_id == 200, got
+    assert cands == [100, 200, 300], got
+    assert (n_queries, n_hits) == (1, 1), got
+    return launches
+
+
+def appearance_merge(torch, dev):
+    """tests/test_torch_appearance.py's integration case at 640x480 on
+    `dev`, through SlamSystem(use_fabmap=True)'s KeyFrameGraph: six
+    keyframes of PlaneScene(seed=3) along a track, each constrained to the
+    one before it, then a query keyframe that sees place 2 rolled by 0.3
+    rad while its pose has drifted so far that the Euclidean overlap
+    search finds nothing. Returns (the Euclidean set, the candidate ids
+    find_candidates returns, its appearance hit, the index's queries and
+    hits): the hit and its graph neighbours are the candidates."""
+    from lsd_slam_tpu_torch import lie
+    from lsd_slam_tpu_torch.config import LSDConfig, SystemConfig
+    from lsd_slam_tpu_torch.frames import build_frame
+    from lsd_slam_tpu_torch.mapping.keyframe_graph import Constraint
+    from lsd_slam_tpu_torch.system import Keyframe, PoseNode, SlamSystem
+    from lsd_slam_tpu_torch.utils import synth
+
+    cam = synth.default_camera(640, 480)
+    scene = synth.PlaneScene(seed=3)
+
+    def view(x, roll=0.0):
+        c2w = lie.se3_mul(lie.se3_exp(torch.tensor([x, 0, 0, 0, 0, 0.0])),
+                          lie.se3_exp(torch.tensor([0, 0, 0, 0, 0, roll])))
+        img, dep = synth.render(scene, cam, lie.se3_inverse(c2w), device=dev)
+        return build_frame(img, 5), dep
+
+    cfg = LSDConfig(width=640, height=480).replace(
+        system=SystemConfig(use_fabmap=True))
+    sys_ = SlamSystem(cam, cfg, enable_slam=True, device=dev)
+    graph = sys_.backend.graph
+    prev = None
+    for k, x in enumerate((0.0, 0.35, 0.7, 1.05, 1.4, 1.75)):
+        pyr, dep = view(x)
+        node = PoseNode(k * 100, sys_.registry)
+        node.this_to_parent = np.array([1, 0, 0, 0, x, 0, 0, 1.0])
+        kf = Keyframe(k * 100, 0.0, pyr, node, 5)
+        sys_.map.initialize_from_gt(1.0 / torch.clamp_min(dep, 1e-6),
+                                    pyr.max_grad[0])
+        sys_._export_depth_to(kf)
+        kf.idx_in_keyframes = k
+        sys_.keyframes.append(kf)
+        sys_.id_to_keyframe[kf.id] = kf
+        if prev is None:
+            graph.add_keyframe(kf)
+        else:
+            graph.insert_constraint(Constraint(
+                prev, kf, np.array([1, 0, 0, 0, 0.35, 0, 0, 1.0]),
+                np.eye(7) * 100, 1.0))
+        prev = kf
+    pyr, _ = view(0.7, roll=0.3)
+    node = PoseNode(9999, sys_.registry)
+    node.this_to_parent = np.array([1, 0, 0, 0, 100.0, 100.0, 0, 1.0])
+    query = Keyframe(9999, 0.0, pyr, node, 5)
+    query.mean_idepth = 1.0
+    euclid = graph.find_euclidean_overlap_frames(
+        node.this_to_parent, 1.0, 15.0 / 16.0, 0.75, True)
+    cands, fabmap_id = graph.find_candidates(query, 1.0)
+    return ([f.id for f, _, _ in euclid], sorted(cands), fabmap_id,
+            graph.appearance.n_queries, graph.appearance.n_hits)
+
+
+WARMUP_TAG = "[warmup-run] "
+
+
+def warmup_run(mode: str) -> int:
+    """`chip_smoke.py --warmup-run with|without`, in a fresh process: the
+    first frames of [slam]'s sequence (rendered on the host) into a new
+    640x480 engine on the card, with or without `warmup(cam, cfg)` first;
+    prints the ms of the engine's first calls, and warm-up's own report
+    and kernel launches, as the last line."""
+    import torch
+    from lsd_slam_tpu_torch.config import LSDConfig
+    from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
+    from lsd_slam_tpu_torch.ops import scatter
+    from lsd_slam_tpu_torch.system import SlamSystem, warmup
+    from lsd_slam_tpu_torch.utils import synth
+
+    cam = synth.default_camera(640, 480)
+    cfg = LSDConfig()
+    scene = synth.BenchScene(seed=0)
+    poses = synth.bench_trajectory(130)
+    frames = [[a.numpy() for a in synth.render_realistic(
+        scene, cam, poses[i], frame_index=i, noise_sigma=0.0, device="cpu")]
+        for i in range(4)]
+    out = dict(mode=mode)
+    if mode == "with":
+        stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
+        out["warmup"] = warmup(cam, cfg)
+        out["warmup_fused"] = stencil.FUSED_LAUNCHES
+        out["warmup_segment_sum"] = scatter.LAUNCHES
+    t0 = time.perf_counter()
+    sys_ = SlamSystem(cam, cfg)
+    sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
+    torch.cuda.synchronize()
+    out["init_ms"] = (time.perf_counter() - t0) * 1e3
+    out["frame_ms"] = []
+    for i in range(1, 4):
+        t0 = time.perf_counter()
+        sys_.track_frame(frames[i][0], i, i / 30.0)
+        torch.cuda.synchronize()
+        out["frame_ms"].append((time.perf_counter() - t0) * 1e3)
+    log(WARMUP_TAG + json.dumps(out))
+    return 0
+
+
+def warmup_phase(card):
+    """Phase [warmup]: `--warmup-run` without, then with warm-up, each in a
+    fresh process; returns warm-up's fused and segment-sum launches."""
+    got = {}
+    for mode in ("without", "with"):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--warmup-run", mode], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"--warmup-run {mode} exit "
+                               f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-3000:]}")
+        last = proc.stdout.splitlines()[-1]
+        assert last.startswith(WARMUP_TAG), proc.stdout[-3000:]
+        got[mode] = json.loads(last[len(WARMUP_TAG):])
+    w = got["with"]
+    log(f"[warmup] a fresh process, 640x480: without warm-up gt_depth_init "
+        f"{got['without']['init_ms']:.1f} ms, first frame steps "
+        f"{[round(x, 1) for x in got['without']['frame_ms']]} ms; after "
+        f"warmup(cam, cfg) ({w['warmup']}, {w['warmup_fused']} fused and "
+        f"{w['warmup_segment_sum']} segment_sum launches) gt_depth_init "
+        f"{w['init_ms']:.1f} ms, first frame steps "
+        f"{[round(x, 1) for x in w['frame_ms']]} ms; {card}")
+    assert w["warmup"]["keyframes"] >= 2 and w["warmup"]["reloc_warmed"]
+    assert w["warmup_fused"] > 0 and w["warmup_segment_sum"] > 0
+    return w["warmup_fused"], w["warmup_segment_sum"]
 
 
 def check_kernels(torch, stencil, reg_dist_var, diff_facs, validity_th):
@@ -1309,6 +1924,9 @@ def main() -> int:
     ap.add_argument("--counted-runner", nargs=argparse.REMAINDER,
                     metavar="ARG", help="run io.runner.main(ARG...) with "
                     "the kernel counts as the last line ([cli] uses it)")
+    ap.add_argument("--warmup-run", choices=("with", "without"),
+                    help="time a fresh engine's first frames with or "
+                    "without warm-up ([warmup] uses it)")
     args = ap.parse_args()
     import torch
 
@@ -1324,8 +1942,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if args.counted_runner is not None:
         return counted_runner(args.counted_runner)
+    if args.warmup_run:
+        return warmup_run(args.warmup_run)
     from lsd_slam_tpu_torch.ops import build
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
+    from lsd_slam_tpu_torch.ops import scatter
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
 
     t_start = time.perf_counter()
@@ -1370,17 +1991,27 @@ def main() -> int:
     fused_bound, fused_by = bound(38, 25 * 12 + 10)
     log(f"[kernel] 480x640 bounds: accumulators {acc_bound:.5f} ms "
         f"({acc_by}), fused {fused_bound:.5f} ms ({fused_by})")
+    seg_err, seg_t, seg_bound, seg_app_t = scatter_phase(torch, card)
 
-    phase_done("build and kernels")
+    phase_done("build, kernels and scatter")
+
+    # ---- 13., 14., 16. sparse PGO, appearance index, warm-up ----
+    pgo_seg = pgo_sparse_phase(torch, card)
+    phase_done("pgo-sparse")
+    app_seg = appearance_phase(torch, card)
+    phase_done("appearance")
+    warm_fused, warm_seg = warmup_phase(card)
+    phase_done("warmup")
 
     # ---- 4. VO at full width ----
     with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
                            "vo_orbit_640x480.json")) as f:
         ref = json.load(f)
     with counted_plain(stencil) as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
         sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
         launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
+        SEGMENT_LAUNCHES["vo"] = scatter.LAUNCHES
     st = sys_.stats.snapshot()
     n = ref["n_frames"]
     traj = sys_.trajectory_array()
@@ -1411,7 +2042,8 @@ def main() -> int:
         f"{st.get('switch_syncs', 0):.0f})")
     log(f"[vo] regularize_fused launches {fused_launches}, "
         f"regularize_accumulators launches {launches}, plain-version calls "
-        f"{plain_calls[0]}, over {n - 1} tracked frames")
+        f"{plain_calls[0]}, segment_sum launches {SEGMENT_LAUNCHES['vo']}, "
+        f"over {n - 1} tracked frames")
     log(f"[vo] stage ms (dispatch windows): {sys_.timers.summary()}")
     assert sys_.tracking_is_good, "tracking lost"
     assert created >= 1, "no keyframe switch"
@@ -1502,11 +2134,19 @@ def main() -> int:
                                    "slam-threads")
     phase_done("SLAM threads")
 
+    # ---- 15. SLAM with the appearance index ----
+    log(f"[slam-fabmap] card: {card}")
+    fab_fused, _, _ = slam_phase(
+        torch, stencil, functools.partial(counted_plain, stencil),
+        "slam-fabmap", trace=False)
+    phase_done("slam-fabmap")
+
     # ---- 11. and 12. the product surface: undistortion, the runner ----
     undistort_phase(torch, card)
     phase_done("undistort")
-    cli_fused = cli_phase(torch, card)
+    cli_fused, cli_seg = cli_phase(torch, card)
     phase_done("cli")
+
 
     common = dict(route="cuda",
                   source="lsd_slam_tpu_torch/csrc/regularize_stencil.cu",
@@ -1516,7 +2156,8 @@ def main() -> int:
         dict(name="regularize_fused", **common,
              launches=(fused_launches + slam_fused + loop_fused
                        + multi_fused + pipe_fused + prod_fused
-                       + threads_fused + sum(cli_fused.values())),
+                       + threads_fused + sum(cli_fused.values())
+                       + fab_fused + warm_fused),
              vo_launches=fused_launches, slam_launches=slam_fused,
              slam_loop_launches=loop_fused,
              observe_multi_launches=multi_fused,
@@ -1524,6 +2165,7 @@ def main() -> int:
              slam_production_launches=prod_fused,
              slam_threads_launches=threads_fused,
              cli_launches=cli_fused,
+             slam_fabmap_launches=fab_fused, warmup_launches=warm_fused,
              slam_busy_share=busy_share,
              slam_pipelined_busy_share=pipe_share,
              observe_multi_max_abs_err=multi_err,
@@ -1547,6 +2189,26 @@ def main() -> int:
              library_note="no single PyTorch call computes the five "
                           "accumulators; off the main path since "
                           "regularize() calls the fused entry"),
+        dict(name="segment_sum", route="cuda",
+             source="lsd_slam_tpu_torch/csrc/segment_sum.cu",
+             replaces="lsd_slam_tpu/depth/regularize.py:169 (XLA's "
+                      "scatter-add in propagate; no Pallas counterpart)",
+             also_replaces=["lsd_slam_tpu/mapping/pose_graph.py:57-63",
+                            "lsd_slam_tpu/mapping/sparse_pgo.py:63-99",
+                            "lsd_slam_tpu/mapping/appearance.py:92-105"],
+             launches=(sum(SEGMENT_LAUNCHES.values())
+                       + sum(cli_seg.values()) + pgo_seg + app_seg
+                       + warm_seg),
+             path_launches=dict(SEGMENT_LAUNCHES, cli=cli_seg,
+                                pgo_sparse=pgo_seg, appearance=app_seg,
+                                warmup=warm_seg),
+             max_abs_err=seg_err, ms=seg_t["kernel"],
+             sort_and_kernel_ms=seg_t["sort_and_kernel"],
+             plain_ms=seg_t["plain"], bound_ms=seg_bound,
+             bound_by="bytes", library_ms=seg_t["atomic_index_add"],
+             library_note="index_add_ (atomic adds, order not fixed)",
+             shape="propagate 640x480, one 1-D call of pass 2",
+             appearance_shapes=seg_app_t),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -11,11 +11,14 @@ Port of lsd_slam_tpu/depth/regularize.py (DepthMap.cpp:475-880):
     scatter-max of idepth picks the nearest hypothesis per target pixel,
     then a compatibility-gated scatter-add merges (DepthMap.cpp:475-653).
 
-Dropped scatters go to a dump slot h*w that is sliced off, as in the JAX
-version. Pass 1 (`amax`) is order-independent. Pass 2 is a float
-scatter-add: sequential (deterministic) on the CPU, atomics on the card,
-whose order changes from run to run — sums of up to a handful of terms per
-pixel, so results differ by a few f32 ulps between runs there.
+Pass 1 (`amax`) sends dropped sources to a dump slot h*w that is sliced
+off, as in the JAX version; it is order-independent. Pass 2 is a float
+scatter-add through `ops.scatter.ordered_index_add`: each target pixel sums
+its compatible sources in source order, sequentially on the CPU and
+through the order-fixed segment-sum kernel on the card, so a run gives the
+same bits every time. Its dropped sources add +0.0 at their own pixel
+instead of the dump slot: the sums start at +0 and only grow, so an added
++0.0 changes no bit, and no single target collects every dropped pixel.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import DepthFilterConfig, MappingConfig
 from lsd_slam_tpu_torch.ops.interp import bilinear, trunc_int
 from lsd_slam_tpu_torch.ops.regularize_stencil import regularize_fused
+from lsd_slam_tpu_torch.ops.scatter import ordered_index_add, sort_index
 from lsd_slam_tpu_torch.depth.state import DepthMapState
 
 _DIV_EPS = 1e-10
@@ -210,28 +214,30 @@ def propagate(state: DepthMapState, old_to_new_se3, kf_img, new_img,
     compatible = keep_f & (dcfg.diff_fac_prop_merge * diff * diff
                            <= src_var + tgt_max_var)
 
+    # a dropped source adds +0.0 at its own pixel (see the module note)
+    order = sort_index(torch.where(compatible, flat_idx,
+                                   torch.arange(h * w, device=dev)))
+
     def scatter_add(vals):
-        buf = torch.zeros((h * w + 1,), device=dev)
-        return buf.index_add_(0, idx_or_oob, torch.where(compatible, vals,
-                                                         zero))
+        return ordered_index_add(torch.zeros((h * w,), device=dev), order,
+                                 torch.where(compatible, vals, zero))
 
     id_sum = scatter_add(src_id / src_var)
     ivar_sum = scatter_add(1.0 / src_var)
     validity_sum = scatter_add(src_validity)
     count = scatter_add(torch.ones_like(src_id))
 
-    hw = h * w
-    tgt_valid = (count[:hw] > 0).reshape(h, w)
-    safe_ivar = torch.clamp_min(ivar_sum[:hw], _DIV_EPS).reshape(h, w)
+    tgt_valid = (count > 0).reshape(h, w)
+    safe_ivar = torch.clamp_min(ivar_sum, _DIV_EPS).reshape(h, w)
     zeros = torch.zeros((h, w), device=dev)
-    tgt_id = torch.where(tgt_valid, id_sum[:hw].reshape(h, w) / safe_ivar,
+    tgt_id = torch.where(tgt_valid, id_sum.reshape(h, w) / safe_ivar,
                          zeros)
     tgt_var = torch.where(tgt_valid, 1.0 / safe_ivar, zeros)
     validity_cap = dcfg.validity_counter_max \
         + dcfg.validity_counter_max_variable
     tgt_validity = torch.where(
         tgt_valid,
-        torch.clamp_max(validity_sum[:hw].reshape(h, w), validity_cap), zeros)
+        torch.clamp_max(validity_sum.reshape(h, w), validity_cap), zeros)
 
     return DepthMapState(
         valid=tgt_valid,

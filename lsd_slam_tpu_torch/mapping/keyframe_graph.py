@@ -12,9 +12,14 @@ device. Bookkeeping (neighbour sets, BFS, failed-constraint memory, the
 far-candidate cap's `random.Random(0)` draws) stays on the host, in the
 JAX package's order.
 
-Not ported yet: the appearance index (`use_fabmap=True`, ROADMAP Queue 1
-item 4a) and the mesh / multi-host batches (Queue 1 item 8); the port runs
-on one device, as a one-device JAX run does (`mesh` is None).
+With `use_fabmap=True` the graph keeps an `AppearanceIndex`
+(mapping/appearance.py): every keyframe added to the graph is described
+on the device, and `find_candidates` adds the appearance hit and its
+neighbours to the Euclidean overlap set, as in the JAX package.
+
+Not ported yet: the mesh / multi-host batches (ROADMAP Queue 1 item 8);
+the port runs on one device, as a one-device JAX run does (`mesh` is
+None).
 """
 
 from __future__ import annotations
@@ -29,17 +34,13 @@ import numpy as np
 import torch
 
 from lsd_slam_tpu_torch.lie import np_sim3 as nps
+from lsd_slam_tpu_torch.mapping.appearance import AppearanceIndex
 from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
 from lsd_slam_tpu_torch.tracking import quick_tracker as qt
 from lsd_slam_tpu_torch.tracking.quick_tracker import QuickTracker
 from lsd_slam_tpu_torch.tracking.reference import TrackingRef
 from lsd_slam_tpu_torch.tracking.sim3_tracker import (
     SIM3_PACK as SP, Sim3Tracker, stack_refs)
-
-_FABMAP_RAISE = ("use_fabmap=True (the appearance index, AppearanceIndex) "
-                 "is not ported yet: ROADMAP Queue 1 item 4a (appearance "
-                 "index)")
-
 
 class Constraint:
     """== KFConstraintStruct (KeyFrameGraph.h:42-78)."""
@@ -105,8 +106,6 @@ class KeyFrameGraph:
         self.system = system
         cam = system.cam
         cfg = system.cfg
-        if cfg.system.use_fabmap:
-            raise NotImplementedError(_FABMAP_RAISE)
         self.device = system.device
         self.sim3_tracker = Sim3Tracker(cam, cfg.sim3_tracker,
                                         sigma2=cfg.mapping.camera_pixel_noise2)
@@ -123,6 +122,9 @@ class KeyFrameGraph:
         self._rng = random.Random(0)
         self._pose_cache_key = None
         self._pose_cache = None
+        # optional appearance retrieval (== useFabMap, settings.cpp:92)
+        self.appearance = (AppearanceIndex(device=self.device)
+                           if cfg.system.use_fabmap else None)
         self.fow_x = 2.0 * math.atan(cam.width / (cam.fx * 2.0))
         self.fow_y = 2.0 * math.atan(cam.height / (cam.fy * 2.0))
         # permaRef store (== Frame::setPermaRef, Frame.cpp:149-174): the
@@ -198,6 +200,8 @@ class KeyFrameGraph:
         kf.pose.is_in_graph = True
         self.set_permaref(kf)
         self.keyframes_for_retrack.append(kf)
+        if self.appearance is not None:
+            self.appearance.add(kf.id, kf.pyr)
 
     def insert_constraint(self, c: Constraint):
         """== insertConstraint (KeyFrameGraph.cpp:258-294)."""
@@ -289,13 +293,26 @@ class KeyFrameGraph:
 
     def find_candidates(self, kf, closeness_th: float, use_fabmap=True):
         """== findCandidates (TrackableKeyFrameSearch.cpp:174-203): the
-        Euclidean overlap set (no appearance index in the port)."""
+        Euclidean overlap set, with the appearance hit and its neighbours
+        (when the index exists and `use_fabmap`)."""
         kcfg = self.system.cfg.keyframe
         frames = self.find_euclidean_overlap_frames(
             kf.pose.cam_to_world(), kf.mean_idepth,
             closeness_th * 15.0 / (kcfg.kf_dist_weight ** 2),
             1.0 - 0.25 * closeness_th, check_both_scales=True)
-        return {f.id: f for f, _, _ in frames}, None
+        cands = {f.id: f for f, _, _ in frames}
+        fabmap_id = None
+        if self.appearance is not None and use_fabmap:
+            id_to_kf = self.system.id_to_keyframe
+            fabmap_id = self.appearance.query(kf.pyr, kf.id)
+            if fabmap_id is not None and fabmap_id in id_to_kf:
+                cands[fabmap_id] = id_to_kf[fabmap_id]
+                for nid in self.neighbors.get(fabmap_id, ()):
+                    if nid in id_to_kf:
+                        cands[nid] = id_to_kf[nid]
+            else:
+                fabmap_id = None
+        return cands, fabmap_id
 
     def find_reposition_candidate(self, tracked, max_score: float):
         """== findRePositionCandidate (TrackableKeyFrameSearch.cpp:103-172)."""

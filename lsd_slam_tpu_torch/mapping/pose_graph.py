@@ -8,15 +8,17 @@ Port of lsd_slam_tpu/mapping/pose_graph.py, the g2o replacement
   * Jacobians:       J_to = Adj(X_from^-1), J_from = -J_to
   * Huber kernel on chi2 with a per-edge delta.
 
-`_assemble` (the 7x7 block products scattered into a dense (7N, 7N)
-system) and `_apply_update` run on the device; each iteration pulls H, g
-and the total chi2 as one packed tensor, and the damped solve runs in
-numpy f64 exactly as in the JAX package: fixed-vertex rows, LM damping,
-the `dmax > 10` guard, quaternion renormalisation at the end.
+Up to `dense_threshold` vertices, `_assemble` (the 7x7 edge blocks of
+`sparse_pgo.edge_blocks` scattered into a dense (7N, 7N) system through
+the order-fixed `ordered_index_add`) and `apply_update` run on the device;
+each iteration pulls H, g and the total chi2 as one packed tensor, and the
+damped solve runs in numpy f64 exactly as in the JAX package: fixed-vertex
+rows, LM damping, the `dmax > 10` guard, quaternion renormalisation at the
+end. Above it, `sparse_pgo.optimize_sparse` solves by block-Jacobi PCG on
+the device, as the JAX package does.
 
-Not ported yet: the matrix-free PCG path above `dense_threshold` vertices
-(ROADMAP Queue 1 item 4b, sparse PGO) and the mesh / multi-host paths
-(Queue 1 item 8); the port runs on one device.
+Not ported yet: the mesh / multi-host paths (ROADMAP Queue 1 item 8); the
+port runs on one device.
 """
 
 from __future__ import annotations
@@ -26,43 +28,29 @@ from typing import List
 import numpy as np
 import torch
 
-from lsd_slam_tpu_torch import lie, resolve_device
+from lsd_slam_tpu_torch import resolve_device
 from lsd_slam_tpu_torch.lie import np_sim3 as nps
+from lsd_slam_tpu_torch.mapping.sparse_pgo import (apply_update, edge_blocks,
+                                                   optimize_sparse)
+from lsd_slam_tpu_torch.ops.scatter import ordered_index_add
 
 
 def _assemble(poses, efrom, eto, meas_inv, info, huber_delta,
               n_vertices: int):
     """GN normal equations: H (7N, 7N), g (7N,) and per-edge chi2."""
-    xf = poses[efrom]
-    xt = poses[eto]
-    xf_inv = lie.sim3_inverse(xf)
-    r = lie.sim3_log(lie.sim3_mul(lie.sim3_mul(xf_inv, xt), meas_inv))
-
-    chi2 = torch.einsum("ei,eij,ej->e", r, info, r)
-    w = torch.where(chi2 <= huber_delta * huber_delta, torch.ones_like(chi2),
-                    huber_delta / torch.sqrt(torch.clamp_min(chi2, 1e-12)))
-
-    A = lie.sim3_adjoint(xf_inv)              # J_to; J_from = -A
-    WI = info * w[:, None, None]
-    AtW = A.transpose(-1, -2) @ WI
-    AtWA = AtW @ A
-    AtWr = (AtW @ r.unsqueeze(-1)).squeeze(-1)
-
+    AtWA, AtWr, chi2 = edge_blocks(poses, efrom, eto, meas_inv, info,
+                                   huber_delta)
     n = n_vertices
-    H = torch.zeros((n, n, 7, 7), dtype=torch.float32, device=poses.device)
-    H.index_put_((efrom, efrom), AtWA, accumulate=True)
-    H.index_put_((eto, eto), AtWA, accumulate=True)
-    H.index_put_((efrom, eto), -AtWA, accumulate=True)
-    H.index_put_((eto, efrom), -AtWA, accumulate=True)
+    H = torch.zeros((n * n, 7, 7), dtype=torch.float32, device=poses.device)
+    ordered_index_add(H, efrom * n + efrom, AtWA)
+    ordered_index_add(H, eto * n + eto, AtWA)
+    ordered_index_add(H, efrom * n + eto, -AtWA)
+    ordered_index_add(H, eto * n + efrom, -AtWA)
     g = torch.zeros((n, 7), dtype=torch.float32, device=poses.device)
-    g.index_put_((efrom,), -AtWr, accumulate=True)
-    g.index_put_((eto,), AtWr, accumulate=True)
-    Hd = H.permute(0, 2, 1, 3).reshape(n * 7, n * 7)
+    ordered_index_add(g, efrom, -AtWr)
+    ordered_index_add(g, eto, AtWr)
+    Hd = H.reshape(n, n, 7, 7).permute(0, 2, 1, 3).reshape(n * 7, n * 7)
     return Hd, g.reshape(-1), chi2
-
-
-def _apply_update(poses, delta):
-    return lie.sim3_mul(lie.sim3_exp(delta), poses)
 
 
 class PoseGraph:
@@ -82,6 +70,7 @@ class PoseGraph:
         self.chi2_initial = None
         self.chi2_final = None
         self.n_pulls = 0                        # device -> host pulls
+        self.cg_iters: List[int] = []           # per GN iteration (sparse)
 
     # ------------------------------------------------------------ build
 
@@ -122,10 +111,7 @@ class PoseGraph:
         if n < 2 or e == 0:
             return 0.0
         if n > self.dense_threshold:
-            raise NotImplementedError(
-                f"pose graphs of more than {self.dense_threshold} vertices "
-                "take the sparse PCG solver, which is not ported yet: "
-                "ROADMAP Queue 1 item 4b (sparse PGO)")
+            return optimize_sparse(self, num_iterations)
         dev = self.device
         f32 = torch.float32
         efrom = torch.as_tensor(np.asarray(self.e_from[:e]), device=dev)
@@ -176,7 +162,7 @@ class PoseGraph:
             if not np.isfinite(dmax) or dmax > 10.0:
                 lam *= 10
                 continue
-            poses_d = _apply_update(poses_d, torch.as_tensor(
+            poses_d = apply_update(poses_d, torch.as_tensor(
                 delta.reshape(n, 7), dtype=f32, device=dev))
 
             if last_chi2 is not None and total_chi2 > last_chi2 * 1.5:

@@ -26,6 +26,7 @@ BUILD_DIR = _PKG / "_build"
 # kernel name -> source file under csrc/
 SOURCES = {
     "regularize_stencil": "regularize_stencil.cu",
+    "segment_sum": "segment_sum.cu",
 }
 
 # -fmad=false: the kernels must round like the JAX lattice, which never

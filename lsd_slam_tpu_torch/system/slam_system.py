@@ -27,8 +27,8 @@ Keyframe selection, tracking-loss handling, the keyframe switch (finish,
 re-activate or propagate, install), the back-end hooks and finalize follow
 the JAX engine line by line. `enable_slam=False` is visual odometry only.
 
-Not ported yet: the appearance index (`use_fabmap=True`, ROADMAP Queue 1
-item 4a), which raises NotImplementedError.
+`cfg.system.use_fabmap` adds the appearance index to the constraint
+search (mapping/appearance.py), as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -147,10 +147,6 @@ class SlamSystem:
                  enable_slam: bool = True, seed: int = 0, device=None):
         if cam.width != cfg.width or cam.height != cfg.height:
             cfg = cfg.replace(width=cam.width, height=cam.height)
-        if enable_slam and cfg.system.use_fabmap:
-            raise NotImplementedError(
-                "use_fabmap=True (the appearance index) is not ported yet: "
-                "ROADMAP Queue 1 item 4a (appearance index)")
         self.device = resolve_device(device)
         self.cam = cam
         self.cfg = cfg

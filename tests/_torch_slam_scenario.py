@@ -1,12 +1,13 @@
 """The SLAM scenario of tests/test_torch_slam.py, run by one engine in a
 fresh process.
 
-    python tests/_torch_slam_scenario.py ENGINE IN.npz OUT.npz [LAG]
+    python tests/_torch_slam_scenario.py ENGINE IN.npz OUT.npz [LAG] [FABMAP]
 
 ENGINE is `jax` (the reference engine) or `port`; IN.npz holds the
 rendered sequence (`imgs`, `deps`) and the camera (`cam`: fx, fy, cx, cy);
 OUT.npz receives what the tests read (see `summary`); LAG is the engine's
-`pipeline_lag` (default 0). The scenario: gt-depth init, N-1 tracked
+`pipeline_lag` (default 0); FABMAP 1 turns on `use_fabmap` (the
+appearance index in the constraint search; default 0). The scenario: gt-depth init, N-1 tracked
 frames, a manual tracking loss, the return leg fed backwards until the
 relocaliser recovers, finalize. At lag > 0 the ring is drained
 (`block_until_mapped`) before the loss and after the lost frame, so the
@@ -79,25 +80,29 @@ def summary(sys_, counters, recovered, good_before) -> dict:
         tracking_is_good=sys_.tracking_is_good,
         n_vertices=graph.pose_graph.n_vertices,
         n_edges=graph.pose_graph.n_edges,
+        appearance_size=(-1 if graph.appearance is None
+                         else len(graph.appearance)),
+        # the port's index counts the queries it scored (-1: none, or JAX)
+        appearance_queries=getattr(graph.appearance, "n_queries", -1),
         trajectory=sys_.trajectory_array(),
         optimized=sys_.optimized_trajectory_array())
 
 
-def run_jax(cam, imgs, deps, lag: int = 0) -> dict:
+def run_jax(cam, imgs, deps, lag: int = 0, fabmap: bool = False) -> dict:
     from lsd_slam_tpu.camera import Camera
     from lsd_slam_tpu.config import LSDConfig, KeyframeConfig, SystemConfig
     from lsd_slam_tpu.system import SlamSystem
 
     cfg = LSDConfig(width=W, height=H).replace(
         keyframe=KeyframeConfig(**KEYFRAME),
-        system=SystemConfig(pipeline_lag=lag))
+        system=SystemConfig(pipeline_lag=lag, use_fabmap=fabmap))
     sys_ = SlamSystem(Camera(*cam, width=W, height=H), cfg,
                       enable_slam=True)
     out = scenario(sys_, imgs, deps)
     return summary(sys_, dict(sys_.stats.counters), *out)
 
 
-def run_port(cam, imgs, deps, lag: int = 0) -> dict:
+def run_port(cam, imgs, deps, lag: int = 0, fabmap: bool = False) -> dict:
     import torch
     from lsd_slam_tpu_torch.camera import Camera
     from lsd_slam_tpu_torch.config import (LSDConfig, KeyframeConfig,
@@ -107,17 +112,49 @@ def run_port(cam, imgs, deps, lag: int = 0) -> dict:
     torch.set_num_threads(PORT_THREADS)
     cfg = LSDConfig(width=W, height=H).replace(
         keyframe=KeyframeConfig(**KEYFRAME),
-        system=SystemConfig(pipeline_lag=lag))
+        system=SystemConfig(pipeline_lag=lag, use_fabmap=fabmap))
     sys_ = SlamSystem(Camera(*cam, width=W, height=H), cfg, device="cpu")
     out = scenario(sys_, imgs, deps)
     return summary(sys_, sys_.stats.snapshot(), *out)
 
 
-def main(engine: str, src: str, dst: str, lag: str = "0") -> int:
+def short_port_run(n_frames: int = 14, threads: int = 2):
+    """The port alone, in this process, with `threads` torch threads, on
+    the first n_frames of the loop sequence (rendered by the port): gt
+    init, tracked frames with keyframe switches, propagate, constraint
+    search and PGO, then finalize. Returns (logged trajectory, optimised
+    trajectory, keyframe ids). Few threads: a test worker shares the host
+    with the others."""
+    import torch
+    from lsd_slam_tpu_torch.config import KeyframeConfig, LSDConfig
+    from lsd_slam_tpu_torch.system import SlamSystem
+    from lsd_slam_tpu_torch.utils import synth
+
+    torch.set_num_threads(threads)
+    cam = synth.default_camera(W, H)
+    scene = synth.PlaneScene(seed=13)
+    poses = synth.loop_trajectory(N)
+    cfg = LSDConfig(width=W, height=H).replace(
+        keyframe=KeyframeConfig(**KEYFRAME))
+    sys_ = SlamSystem(cam, cfg, device="cpu")
+    for i in range(n_frames):
+        img, dep = synth.render(scene, cam, poses[i], device="cpu")
+        if i == 0:
+            sys_.gt_depth_init(img, dep, 0, 0.0)
+        else:
+            sys_.track_frame(img, i, i / 30.0)
+    sys_.finalize()
+    return (sys_.trajectory_array(), sys_.optimized_trajectory_array(),
+            [kf.id for kf in sys_.keyframes])
+
+
+def main(engine: str, src: str, dst: str, lag: str = "0",
+         fabmap: str = "0") -> int:
     d = np.load(src)
     cam = [float(x) for x in d["cam"]]
     run = {"jax": run_jax, "port": run_port}[engine]
-    np.savez(dst, **run(cam, d["imgs"], d["deps"], int(lag)))
+    np.savez(dst, **run(cam, d["imgs"], d["deps"], int(lag),
+                        bool(int(fabmap))))
     return 0
 
 

@@ -39,6 +39,10 @@ its differences from the stored reference; --threads sets the port's torch
 threads (run the JAX engine under `taskset` to change its thread count)
 and --noise-seed scales every image by 1 + 1e-6 * N(0, 1) from that seed,
 so that the spread of runs which differ only in rounding can be measured.
+--fabmap runs the engine with `use_fabmap=True` (the appearance index in
+the constraint search) and adds `_fabmap` to the file name
+(slam_bench_640x480_fabmap.json, slam_loop_160x128_fabmap.json); a
+--check-* run takes the setting from the file it checks.
 --threaded (with --check-port or --check-jax) runs the engine with
 `sequential=False` (constraint search and PGO on worker threads, and at
 lag 0 the mapping thread), whose graph is not deterministic: it prints the
@@ -83,10 +87,12 @@ COUNTERS = ("keyframes_created", "keyframes_reactivated", "relocalized",
             "relocalization_rejected")
 
 
-def out_path(scene: str, lag: int = 0) -> str:
+def out_path(scene: str, lag: int = 0, fabmap: bool = False) -> str:
     name = SCENES[scene]["file"]
     if lag:
         name = name.replace(".json", f"_lag{lag}.json")
+    if fabmap:
+        name = name.replace(".json", "_fabmap.json")
     return os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data", name)
 
 
@@ -170,37 +176,40 @@ def summary(sys_, poses, n, recovered, counters):
 
 
 def config(cfg_cls, kf_cls, scene: str, lag: int = 0,
-           threaded: bool = False):
+           threaded: bool = False, fabmap: bool = False):
     s = SCENES[scene]
     cfg = cfg_cls(width=s["width"], height=s["height"])
     if s["keyframe"]:
         cfg = cfg.replace(keyframe=kf_cls(**s["keyframe"]))
     return cfg.replace(system=dataclasses.replace(
-        cfg.system, pipeline_lag=lag, sequential=not threaded))
+        cfg.system, pipeline_lag=lag, sequential=not threaded,
+        use_fabmap=fabmap))
 
 
-def jax_system(scene: str, lag: int = 0, threaded: bool = False):
+def jax_system(scene: str, lag: int = 0, threaded: bool = False,
+               fabmap: bool = False):
     os.environ.setdefault("LSD_AOT_CACHE", "0")
     from lsd_slam_tpu.config import KeyframeConfig, LSDConfig
     from lsd_slam_tpu.system import SlamSystem
     from lsd_slam_tpu.utils import synth
 
     s = SCENES[scene]
-    cfg = config(LSDConfig, KeyframeConfig, scene, lag, threaded)
+    cfg = config(LSDConfig, KeyframeConfig, scene, lag, threaded, fabmap)
     cfg = cfg.replace(system=dataclasses.replace(cfg.system,
                                                  use_device_mesh=False))
     return SlamSystem(synth.default_camera(s["width"], s["height"]), cfg,
                       enable_slam=True)
 
 
-def run_jax(scene: str, n: int, lag: int = 0):
+def run_jax(scene: str, n: int, lag: int = 0, fabmap: bool = False):
     s = SCENES[scene]
     poses, imgs, dep0 = frames(scene, n)
-    sys_ = jax_system(scene, lag)
+    sys_ = jax_system(scene, lag, fabmap=fabmap)
     recovered = drive(sys_, imgs, dep0, n)
     out = dict(scene=scene, n_frames=n, width=s["width"], height=s["height"],
                scene_seed=s["scene_seed"], keyframe_config=s["keyframe"],
-               noise_sigma=0.0, trajectory=s["trajectory"], pipeline_lag=lag)
+               noise_sigma=0.0, trajectory=s["trajectory"], pipeline_lag=lag,
+               use_fabmap=fabmap)
     out.update(summary(sys_, poses, n, recovered, dict(sys_.stats.counters)))
     return out
 
@@ -214,22 +223,24 @@ def check(ref: dict, engine: str, threads: int, noise_seed: int,
 
     scene, n = ref["scene"], ref["n_frames"]
     lag = ref.get("pipeline_lag", 0)
+    fabmap = ref.get("use_fabmap", False)
     poses, imgs, dep0 = frames(scene, n, noise_seed)
     if engine == "jax":
-        sys_ = jax_system(scene, lag, threaded)
+        sys_ = jax_system(scene, lag, threaded, fabmap)
         counters = lambda: dict(sys_.stats.counters)  # noqa: E731
     else:
         if threads:
             torch.set_num_threads(threads)
         sys_ = SlamSystem(synth.default_camera(ref["width"], ref["height"]),
                           config(LSDConfig, KeyframeConfig, scene, lag,
-                                 threaded), device="cpu")
+                                 threaded, fabmap), device="cpu")
         counters = sys_.stats.snapshot
     t0 = time.time()
     recovered = drive(sys_, imgs, dep0, n)
     got = summary(sys_, poses, n, recovered, counters())
     out = dict(engine=engine, torch_threads=torch.get_num_threads(),
                noise_seed=noise_seed, pipeline_lag=lag, threaded=threaded,
+               use_fabmap=fabmap,
                seconds=time.time() - t0,
                torch=torch.__version__)
     for key in ("keyframe_ids", "parent_ids", "edges", "nonparent_edges",
@@ -261,10 +272,13 @@ def main():
                     help="pipeline_lag of the run (and of the file)")
     ap.add_argument("--threaded", action="store_true",
                     help="with --check-*: run with sequential=False")
+    ap.add_argument("--fabmap", action="store_true",
+                    help="run with use_fabmap=True (the appearance index); "
+                    "the file name gains _fabmap")
     ap.add_argument("--out", help="the reference file to write or check "
                     "(default: the scene's file under reference_data/)")
     args = ap.parse_args()
-    out = args.out or out_path(args.scene, args.lag)
+    out = args.out or out_path(args.scene, args.lag, args.fabmap)
     if args.check_port or args.check_jax:
         with open(out) as f:
             check(json.load(f), "jax" if args.check_jax else "port",
@@ -274,7 +288,7 @@ def main():
         ap.error("--threaded needs --check-port or --check-jax")
     n = (args.frames or LAG_FRAMES.get((args.scene, args.lag))
          or SCENES[args.scene]["frames"])
-    ref = run_jax(args.scene, n, args.lag)
+    ref = run_jax(args.scene, n, args.lag, args.fabmap)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump(ref, f)

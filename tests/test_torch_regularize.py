@@ -233,8 +233,8 @@ def test_fill_holes_matches_jax(shared_state):
 @pytest.mark.parametrize("have_good_mask", [True, False])
 def test_propagate_matches_jax(shared_state, have_good_mask):
     """Pass 2 of propagate is a float scatter-add. On the CPU both packages
-    add in index order, so the states agree to rtol = atol = 1e-6 here; on
-    the card the atomics reorder the few terms per pixel (a few ulps)."""
+    add in index order, so the states agree to rtol = atol = 1e-6 here; the
+    port's card route (ops/scatter.py) adds in the same order."""
     cam, state, img0, img1, max_grad, good, old_to_new = shared_state
     jcfg = JaxConfig()
     tcfg = LSDConfig()

@@ -45,6 +45,9 @@ PRODUCT_MODULES = ("io.runner", "io.dataset", "io.output", "io.checkpoint",
                    "io.live", "io.dump", "io.trajectory", "viewer.render",
                    "viewer.live", "viewer.stitch", "camera.undistort",
                    "utils.image_io", "utils.debug_viz")
+# the order-fixed scatter-sum and the modules built on it, and warm-up
+BACKEND_MODULES = ("ops.scatter", "mapping.sparse_pgo", "mapping.appearance",
+                   "system.warmup")
 
 _IMPORT_RUNNER = r"""
 import sys
@@ -63,7 +66,7 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     swept = out.stdout.split("SWEPT", 1)[1]
-    for name in PRODUCT_MODULES:
+    for name in PRODUCT_MODULES + BACKEND_MODULES:
         assert f"'lsd_slam_tpu_torch.{name}'" in swept, name
 
 
@@ -195,28 +198,31 @@ def test_slam_system_runs_where_asked():
     dict(argv=["files:/d", "calib:/c.cfg", "multihost:0:2"]),
 ])
 def test_unported_modes_raise(kw):
-    """What is still to be ported raises, naming its ROADMAP item: the
-    appearance index (in SlamSystem, and in the keyframe graph of a VO
-    engine), the sparse PGO above the dense threshold, and the runner's
-    `multihost:` (the dataset runner itself is ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if "argv" in kw:
-            from lsd_slam_tpu_torch.io import runner
+    """The modes that raised before they were ported: the runner's
+    `multihost:` still raises, naming its ROADMAP item; the appearance
+    index (in SlamSystem, and in the keyframe graph of a VO engine) now
+    builds, and a pose graph above the dense threshold now takes the
+    sparse solver and returns."""
+    from lsd_slam_tpu_torch.mapping.appearance import AppearanceIndex
+    if "argv" in kw:
+        from lsd_slam_tpu_torch.io import runner
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             runner.main(kw["argv"])
-        elif "pgo_vertices" in kw:
-            pg = PoseGraph(device="cpu")
-            for _ in range(kw["pgo_vertices"]):
-                pg.add_vertex(np.array([1, 0, 0, 0, 0, 0, 0, 1.0]))
-            pg.add_edge(0, 1, np.array([1, 0, 0, 0, 0, 0, 0, 1.0]),
-                        np.eye(7), 1.0)
-            pg.optimize(1)
-        elif kw.get("graph"):
-            from lsd_slam_tpu_torch.mapping.keyframe_graph import \
-                KeyFrameGraph
-            KeyFrameGraph(SlamSystem(CAM, kw["cfg"], enable_slam=False,
-                                     device="cpu"))
-        else:
-            SlamSystem(CAM, kw["cfg"], device="cpu")
+    elif "pgo_vertices" in kw:
+        pg = PoseGraph(device="cpu")
+        for _ in range(kw["pgo_vertices"]):
+            pg.add_vertex(np.array([1, 0, 0, 0, 0, 0, 0, 1.0]))
+        pg.add_edge(0, 1, np.array([1, 0, 0, 0, 0, 0, 0, 1.0]),
+                    np.eye(7), 1.0)
+        assert pg.optimize(1) == 0.0 and len(pg.cg_iters) == 1
+    elif kw.get("graph"):
+        from lsd_slam_tpu_torch.mapping.keyframe_graph import KeyFrameGraph
+        graph = KeyFrameGraph(SlamSystem(CAM, kw["cfg"], enable_slam=False,
+                                         device="cpu"))
+        assert isinstance(graph.appearance, AppearanceIndex)
+    else:
+        sys_ = SlamSystem(CAM, kw["cfg"], device="cpu")
+        assert isinstance(sys_.backend.graph.appearance, AppearanceIndex)
 
 
 @pytest.mark.parametrize("sequential", [True, False])
