@@ -18,17 +18,19 @@ raises, so the script exits non-zero and prints no ok line:
                against the unfused path (accumulators + torch epilogue);
                the checks run at the config's diff_fac (1) and at 2;
                then [scatter]: the order-fixed scatter-sum
-               (`ops.scatter.ordered_index_add`, the `segment_sum` kernel
-               after a stable sort) on the card equals the CPU's
-               `index_add_` on the same inputs bit for bit, twice, and its
-               plain version exactly, at the main path's shapes (1e5
-               sources into 1e3 targets, propagate's pass 2 at 640x480, the
-               PGO's 7x7 blocks, the appearance descriptor's histograms and
-               tile sums for an add and a query); CUDA-event times at
-               propagate's shape of the kernel, sort + kernel, the plain
-               version and the atomic `index_add_`, and at the appearance
-               shapes of all but the plain version; a target out of range
-               fails the kernel's device-side assert (in a child process);
+               (`ops.scatter.ordered_index_add`: the `segment_order`
+               kernels, then the `segment_sum` fold) at the main path's
+               shapes (1e5 sources into 1e3 targets, propagate's pass 2 at
+               640x480, the PGO's 7x7 blocks, the appearance descriptor's
+               histograms and tile sums for an add and a query), on every
+               case twice: the order equals torch.sort(stable=True)'s, the
+               sums in both regimes of the fold equal the CPU's
+               `index_add_` bit for bit, and both kernels their plain
+               versions; CUDA-event times in turns of the order + fold,
+               the fold in each regime, the order, torch.sort and the
+               atomic `index_add_` at propagate's and the appearance
+               shapes, beside their bounds; a target out of range fails
+               the count kernel's device-side assert (in a child process);
   4. VO      — the sequential visual-odometry loop at 640x480 (default
                LSDConfig(), PlaneScene(seed=7), the orbit trajectory of the
                stored JAX reference), gt_depth_init, track_frame for N-1
@@ -174,6 +176,14 @@ the same `lsd_regularize_accumulators` entry, e.g. from `git show`) and
 times it against the current kernel in turns (old, new, new, old),
 L2-warm and cold.
 
+    python3 chip_smoke.py --baseline-segment-cu OLD.cu
+
+also builds OLD.cu, the sort-and-walk csrc/segment_sum.cu of commit
+7824632 (its `lsd_segment_sum` walks stable-sorted int64 keys and perm,
+one thread per segment head; any other file is refused, by its sha256,
+before anything is built), and times its route (torch.sort + its kernel)
+and its kernel alone in turns with the current ones in [scatter].
+
     python3 chip_smoke.py --counted-runner files:DIR calib:FILE out:DIR ...
 
 runs `lsd_slam_tpu_torch.io.runner.main` with those arguments and prints
@@ -202,6 +212,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import itertools
 import json
 import os
@@ -257,8 +268,11 @@ SLAM_RUNS = {
 # the sequential ones (lag 0 and lag 3), where the port is deterministic on
 # the card
 BIT_EQUAL_RUNS = ("slam", "slam-pipelined")
-# segment_sum launches of each phase's run (counts zeroed just before)
+# kernel launches of the fold (segment_sum) and of the order step
+# (segment_order: its count, scan, place and sort kernels, up to five a
+# step) in each path's run (counts zeroed just before)
 SEGMENT_LAUNCHES = {}
+ORDER_LAUNCHES = {}
 # ... and the bound of the card's ATE (raw and after PGO) as a multiple of
 # the reference's: the same runs reach 1.05x on the bench, 1.16x on the loop
 SLAM_ATE_RATIO = 1.5
@@ -449,12 +463,11 @@ def time_gpu(torch, fn, per_batch: int, batches: int) -> float:
 
 
 def time_in_turns(torch, fns, per_batch, batches):
-    """Median device ms per call of each of two functions, timed in turns
-    a, b, b, a (half the batches each time)."""
-    (na, fa), (nb, fb) = fns
+    """Median device ms per call of each of (name, fn) in `fns`, timed in
+    turns a, b, ..., b, a (half the batches each time)."""
     half = max(batches // 2, 1)
-    out = {na: [], nb: []}
-    for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+    out = {name: [] for name, _ in fns}
+    for name, fn in list(fns) + list(fns)[::-1]:
         out[name].append(time_gpu(torch, fn, per_batch, half))
     return {k: statistics.median(v) for k, v in out.items()}
 
@@ -719,10 +732,12 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     n = ref["n_frames"]
     sync_each = ref.get("pipeline_lag", 0) == 0
     with counted_plain() as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         run = run_slam(torch, ref, sync_each=sync_each)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
+        ORDER_LAUNCHES[tag] = scatter.ORDER_LAUNCHES
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     st = sys_.stats.snapshot()
@@ -756,7 +771,8 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
             f"{traj_bound:g} / {rot_bound:g}")
     log_run(tag, run, n, fused, acc, plain_calls[0])
     index = sys_.backend.graph.appearance
-    log(f"[{tag}] segment_sum launches {SEGMENT_LAUNCHES[tag]}"
+    log(f"[{tag}] segment_sum launches {SEGMENT_LAUNCHES[tag]}, "
+        f"segment_order launches {ORDER_LAUNCHES[tag]}"
         + ("" if index is None else
            f"; appearance index holds {len(index)} keyframes, answered "
            f"{index.n_queries} queries of the constraint search with "
@@ -782,6 +798,7 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     assert fused >= n and acc == 0 and plain_calls[0] == 0, (
         fused, acc, plain_calls)
     assert SEGMENT_LAUNCHES[tag] > 0, "no segment_sum launch on the path"
+    assert ORDER_LAUNCHES[tag] > 0, "no segment_order launch on the path"
     share = None
     if trace:
         # the profiled pass runs the scenario again: it must build the same
@@ -824,10 +841,12 @@ def threaded_phase(torch, stencil, counted_plain, tag):
     from lsd_slam_tpu_torch.ops import scatter
 
     with counted_plain() as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         run = run_slam(torch, ref, sequential=False, sync_each=False)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
+        ORDER_LAUNCHES[tag] = scatter.ORDER_LAUNCHES
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     n_edges = sys_.backend.graph.pose_graph.n_edges
@@ -1035,11 +1054,13 @@ def counted_runner(argv) -> int:
     from lsd_slam_tpu_torch.ops import scatter
 
     with counted_plain(stencil) as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         runner.main(argv)
         counts = dict(fused=stencil.FUSED_LAUNCHES,
                       accumulators=stencil.LAUNCHES, plain=plain_calls[0],
-                      segment_sum=scatter.LAUNCHES)
+                      segment_sum=scatter.LAUNCHES,
+                      segment_order=scatter.ORDER_LAUNCHES)
     log(COUNTS_TAG + json.dumps(counts))
     return 0
 
@@ -1189,7 +1210,7 @@ def cli_phase(torch, card):
                                        f"out:{out}"])
         traj, kfs, edges, n_pts, n_poses = _runner_outputs(out, CLI_FRAMES)
         launches = {"hz0": counts["fused"]}
-        seg = {"hz0": counts["segment_sum"]}
+        seg = {"hz0": (counts["segment_sum"], counts["segment_order"])}
         with open(os.path.join(out, "poses.jsonl")) as f:
             published = {p["id"]: p["cam_to_world"]
                          for p in map(json.loads, f)}
@@ -1267,13 +1288,13 @@ def cli_phase(torch, card):
                                     f"out:{os.path.join(root, 'out_a')}",
                                     f"checkpoint:{ckpt}"])
         launches["checkpoint"] = counts["fused"]
-        seg["checkpoint"] = counts["segment_sum"]
+        seg["checkpoint"] = (counts["segment_sum"], counts["segment_order"])
         stdout, fps_b, counts = _runner([f"files:{halves[1]}",
                                          f"calib:{calib}",
                                          f"out:{os.path.join(root, 'out_b')}",
                                          f"resume:{ckpt}"])
         launches["resume"] = counts["fused"]
-        seg["resume"] = counts["segment_sum"]
+        seg["resume"] = (counts["segment_sum"], counts["segment_order"])
         traj_b, kfs_b, _, _, n_b = _runner_outputs(
             os.path.join(root, "out_b"), CLI_FRAMES, need_graph=False)
         assert "resumed from" in stdout
@@ -1290,7 +1311,7 @@ def cli_phase(torch, card):
                                          f"out:{os.path.join(root, 'out_p')}",
                                          "hz:30", "pipeline:3"])
         launches["hz30_pipeline3"] = counts["fused"]
-        seg["hz30_pipeline3"] = counts["segment_sum"]
+        seg["hz30_pipeline3"] = (counts["segment_sum"], counts["segment_order"])
         traj_p, kfs_p, edges_p, n_pts_p, _ = _runner_outputs(
             os.path.join(root, "out_p"), CLI_FRAMES)
         pairs = {tuple(sorted(e)) for e in edges_p}
@@ -1301,8 +1322,13 @@ def cli_phase(torch, card):
             f"{launches['hz30_pipeline3']} fused launches; {card}")
         log(f"[cli] regularize_fused launches per runner run {launches}, "
             f"{sum(launches.values())} in all; no regularize_accumulators "
-            f"launch, no plain-version call; segment_sum launches {seg}")
-        return launches, seg
+            f"launch, no plain-version call; (segment_sum, segment_order) "
+            f"launches {seg}")
+        for run, (fold, order) in seg.items():
+            SEGMENT_LAUNCHES[f"cli-{run}"] = fold
+            ORDER_LAUNCHES[f"cli-{run}"] = order
+        assert all(min(n) > 0 for n in seg.values()), seg
+        return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1315,14 +1341,17 @@ def scatter_cases(torch, rng):
     `ordered_index_add`: many sources per target (1e5 into 1e3, signed,
     magnitudes over six decades); propagate's pass 2 at 640x480 (one source
     per pixel, sent to a pixel within 2 of it when compatible, else +0.0 to
-    its own pixel; non-negative terms as id/var, 1/var, validity, count);
-    the dense PGO's 7x7 blocks of a 10-vertex graph into its 100 (i, j)
-    targets, the sparse PGO's diagonal blocks at 1000 vertices, and the
-    appearance descriptor's scatters at 640x480 (level 2: 160x120 pixels)
-    for one roll (an `add`) and for 16 (a query): the soft-binned
+    its own pixel; non-negative terms as id/var, 1/var, validity, count),
+    each 1-D as four calls, then the four as the one (M, 4) call the
+    path makes; the dense PGO's 7x7 blocks of a 10-vertex graph into its
+    100 (i, j) targets (the four blocks of each edge in one call), the
+    sparse PGO's diagonal blocks at 1000 vertices (both ends of each edge),
+    and the appearance descriptor's scatters at 640x480 (level 2: 160x120
+    pixels) for one roll (an `add`) and for 16 (a query): the soft-binned
     histograms (lower bins, then upper bins, into tiles x 8 bins per roll)
-    and the tile sums (every pixel into its tile, about 1,200 sources per
-    target, the longest segments of the port)."""
+    and the tile sums of weights and intensities, one (M, 2) call (every
+    pixel into its tile, about 1,200 sources per target, the longest
+    segments of the port)."""
     def signed(*shape):
         return (rng.standard_normal(shape)
                 * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
@@ -1337,18 +1366,27 @@ def scatter_cases(torch, rng):
     ty = np.clip(ys + rng.integers(-2, 3, h * w), 0, h - 1)
     tx = np.clip(xs + rng.integers(-2, 3, h * w), 0, w - 1)
     idx = np.where(keep, ty * w + tx, np.arange(h * w))
+    terms = []
     for k, hi in enumerate((1e3, 1e2, 50.0, 1.0)):
         vals = np.where(keep, rng.uniform(0, hi, h * w), 0.0) if k < 3 \
             else keep.astype(np.float64)
+        terms.append(vals.astype(np.float32))
         cases.append((f"propagate-640x480-{k}", np.zeros(h * w, np.float32),
-                      idx, vals.astype(np.float32)))
+                      idx, terms[-1]))
+    cases.append(("propagate-640x480", np.zeros((h * w, 4), np.float32), idx,
+                  np.stack(terms, 1)))
     n, e = 10, 24
     a, b = rng.integers(0, n, e), rng.integers(0, n, e)
+    blocks = signed(e, 7, 7)
     cases.append(("pgo-dense-H", np.zeros((n * n, 7, 7), np.float32),
-                  a * n + b, signed(e, 7, 7)))
+                  np.concatenate([a * n + a, b * n + b, a * n + b,
+                                  b * n + a]),
+                  np.concatenate([blocks, blocks, -blocks, -blocks])))
     n, e = 1000, 1058
+    blocks = signed(e, 7, 7)
     cases.append(("pgo-sparse-D", np.zeros((n, 7, 7), np.float32),
-                  rng.integers(0, n, e), signed(e, 7, 7)))
+                  rng.integers(0, n, 2 * e),
+                  np.concatenate([blocks, blocks])))
     h, w = 120, 160
     ys, xs = np.mgrid[0:h, 0:w]
     tile = ((ys * 4 // h) * 4 + xs * 4 // w).reshape(-1)
@@ -1367,94 +1405,213 @@ def scatter_cases(torch, rng):
                       np.concatenate([mag * (1 - fb), mag * fb])
                       .astype(np.float32)))
         cases.append((f"appearance-{what}-tiles",
-                      np.zeros(n_rot * 16, np.float32), cell,
-                      np.where(inb, rng.uniform(0, 255, cell.size), 0.0)
-                      .astype(np.float32)))
+                      np.zeros((n_rot * 16, 2), np.float32), cell,
+                      np.stack([inb.astype(np.float64),
+                                np.where(inb, rng.uniform(0, 255, cell.size),
+                                         0.0)], 1).astype(np.float32)))
     return cases
 
 
-def scatter_phase(torch, card):
-    """Phase [scatter]: on every case the card's `ordered_index_add` equals
-    the CPU's `index_add_` on the same inputs bit for bit, twice (so run to
-    run), and its kernel equals its plain version on the card; the atomic
+# the shapes [scatter] times in turns: one of propagate's four 1-D sums,
+# its (M, 4) call, and the appearance descriptor's four calls
+SCATTER_TIMED = ("propagate-640x480-0", "propagate-640x480",
+                 "appearance-add-hist", "appearance-add-tiles",
+                 "appearance-query-hist", "appearance-query-tiles")
+FADD_CYCLES = 4  # the dependent f32 add's latency on Hopper
+
+
+def sm_clocks_mhz():
+    """(the most, the current) SM clock in MHz, as nvidia-smi reports."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    most, now = (float(x) for x in out.split(","))
+    return most, now
+
+
+def fold_bounds(idx, n_targets, cols, clock_mhz):
+    """The fold's two bounds in ms on this index: bytes (offsets, perm and
+    values read once, each target that gets a source read and written
+    once) at HBM_BYTES_PER_S, and the chain (the longest segment's
+    dependent adds at FADD_CYCLES each, at `clock_mhz`)."""
+    counts = np.bincount(idx, minlength=n_targets)
+    m = idx.shape[0]
+    nbytes = (4 * (n_targets + 1) + m * (4 + 4 * cols)
+              + int((counts > 0).sum()) * 8 * cols)
+    chain = int(counts.max(initial=0)) * FADD_CYCLES / (clock_mhz * 1e3)
+    return nbytes / HBM_BYTES_PER_S * 1e3, chain
+
+
+def order_bound(m, n_targets):
+    """The order step's bytes bound in ms: each int64 key read once, the
+    int32 perm and offsets written once."""
+    return (12 * m + 4 * (n_targets + 1)) / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_breakdown(torch, fn, calls=20):
+    """Device microseconds per call of `fn` by kernel (torch.profiler's
+    `key_averages`, the card's activity only; a kernel's name cut to its
+    function's name). PERF.md reads it, so a profiler that sees no kernel
+    fails the phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.device_time_total:
+            continue
+        name = e.key.replace("void ", "").replace(
+            "(anonymous namespace)::", "")
+        name = "torch fill" if "FillFunctor" in name else name.split("(")[0]
+        out[name] = out.get(name, 0.0) + e.device_time_total / calls
+    assert out, "[scatter] torch.profiler saw no kernel on the card"
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+# sha256 of the one source --baseline-segment-cu takes: csrc/segment_sum.cu
+# of commit 7824632, whose `lsd_segment_sum` has the ABI bound below
+SORT_AND_WALK_SHA256 = ("e68cf89817422a1fb83f4a879f78b9c6"
+                        "a751fb62e11f8725b46808015c4355e3")
+
+
+def bind_walk_segment_sum(lib):
+    """The sort-and-walk `lsd_segment_sum` of the source SORT_AND_WALK_SHA256
+    names (stable-sorted int64 keys and perm, one thread per sorted
+    position and column, the segment's head walking it)."""
+    fn = lib.lsd_segment_sum
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
+                                           ctypes.c_int64, ctypes.c_void_p]
+
+    def launch(torch, keys, perm, vals2, buf2):
+        rc = fn(keys.data_ptr(), perm.data_ptr(), vals2.data_ptr(),
+                buf2.data_ptr(), keys.numel(), buf2.shape[1], buf2.shape[0],
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"sort-and-walk segment_sum launch: cudaError {rc}"
+    return launch
+
+
+def scatter_phase(torch, card, walk=None):
+    """Phase [scatter]. On every case, twice (so run to run): the order
+    step's offsets and perm equal bincount + cumsum and torch.sort(stable=
+    True)'s permutation, and the card's sums in both regimes of the fold
+    and through `ordered_index_add` equal the CPU's `index_add_` bit for
+    bit; the kernels equal their plain versions on the card; the atomic
     `index_add_` on the card is compared too (how many values differ).
-    Then CUDA-event times at propagate's shape (one 1-D call): the kernel
-    with the sort given, sort + kernel, the plain version and the atomic
-    `index_add_`; the kernel, sort + kernel and the atomic `index_add_` at
-    the appearance descriptor's shapes; and a target out of range fails
-    the kernel's device-side assert, in a process of its own (the assert
-    ends that process's CUDA context). Returns the kernel line's
-    numbers."""
+    Then CUDA-event times in turns at SCATTER_TIMED's shapes: the order
+    step and the fold, the fold alone in the regime the shapes pick and in
+    each regime, the order alone, `torch.sort` and the atomic `index_add_`,
+    and with `walk` (`--baseline-segment-cu`) the sort-and-walk route
+    (stable torch.sort + that kernel) and its kernel alone; the plain
+    versions at propagate's shape; the device time of the order step and
+    the fold by kernel (torch.profiler); each shape's bounds. Last, a
+    target out of range fails the count kernel's device-side assert, in a
+    process of its own (the assert ends that process's CUDA context).
+    Returns the kernel lines' numbers."""
     from lsd_slam_tpu_torch.ops import scatter
 
     rng = np.random.default_rng(0)
-    err = 0.0
-    for name, buf, idx, vals in scatter_cases(torch, rng):
+    cases = scatter_cases(torch, rng)
+    err = order_err = 0.0
+    for name, buf, idx, vals in cases:
         b, i, v = (torch.as_tensor(x) for x in (buf, idx, vals))
+        t_len, m = b.shape[0], i.shape[0]
         want = b.clone().index_add_(0, i, v)
+        want_perm = torch.sort(i, stable=True).indices.to(torch.int32)
+        want_off = torch.zeros(t_len + 1, dtype=torch.int32)
+        want_off[1:] = torch.cumsum(torch.bincount(i, minlength=t_len), 0)
         bc, ic, vc = b.cuda(), i.cuda(), v.cuda()
-        got = [scatter.ordered_index_add(bc.clone(), ic, vc).cpu()
-               for _ in range(2)]
-        order = scatter.sort_index(ic)
-        plain = scatter.segment_sum_plain(
-            bc.clone().view(b.shape[0], -1), order,
-            vc.reshape(v.shape[0], -1)).cpu().reshape(b.shape)
+        v2 = vc.reshape(m, -1)
+        checks = []
+        for _ in range(2):
+            order = scatter.sort_index(ic, t_len)
+            sums = {r: scatter.segment_sum(bc.clone().view(t_len, -1), order,
+                                           v2, r).cpu().reshape(b.shape)
+                    for r in ("short", "long")}
+            sums["auto"] = scatter.ordered_index_add(bc.clone(), ic, vc).cpu()
+            checks.append(dict(
+                order=(torch.equal(order.offsets.cpu(), want_off)
+                       and torch.equal(order.perm.cpu(), want_perm)),
+                **{r: torch.equal(got, want) for r, got in sums.items()}))
+        plain_order = scatter.segment_order_plain(ic, t_len)
+        plain = scatter.segment_sum_plain(bc.clone().view(t_len, -1), order,
+                                          v2).cpu().reshape(b.shape)
         atomic = bc.clone().index_add_(0, ic, vc).cpu()
         torch.cuda.synchronize()
-        seg = int(torch.unique(i, return_counts=True)[1].max())
+        same_plain_order = (torch.equal(plain_order.offsets, order.offsets)
+                            and torch.equal(plain_order.perm, order.perm))
         log(f"[scatter] {name}: {tuple(v.shape)} into {tuple(b.shape)} "
-            f"(longest segment {seg}): card == CPU index_add_ "
-            f"{[torch.equal(g, want) for g in got]}, kernel == plain "
-            f"{torch.equal(got[0], plain)}; atomic index_add_ on the card "
-            f"differs from the CPU at {int((atomic != want).sum())} values")
-        assert all(torch.equal(g, want) for g in got), name
-        assert torch.equal(got[0], plain), name
-        err = max(err, float((got[0] - plain).abs().max()))
+            f"(longest segment {int(np.bincount(idx).max())}, regime "
+            f"{scatter.regime_for(m, t_len)}): order == torch.sort, card == "
+            f"CPU index_add_ per regime, twice: {checks}; kernels == plain "
+            f"{same_plain_order and torch.equal(sums['auto'], plain)}; "
+            f"atomic index_add_ on the card differs from the CPU at "
+            f"{int((atomic != want).sum())} values")
+        assert all(all(c.values()) for c in checks), (name, checks)
+        assert same_plain_order and torch.equal(sums["auto"], plain), name
+        err = max(err, float((sums["auto"] - plain).abs().max()))
+        order_err = max(order_err, *(
+            float((a.cpu() - p.cpu()).abs().max()) if a.numel() else 0.0
+            for a, p in ((order.offsets, plain_order.offsets),
+                         (order.perm, plain_order.perm))))
 
-    # times at propagate's shape: one of pass 2's four 1-D calls
-    _, buf, idx, vals = scatter_cases(torch, np.random.default_rng(0))[1]
-    bc, ic, vc = (torch.as_tensor(x, device="cuda") for x in (buf, idx,
-                                                              vals))
-    order = scatter.sort_index(ic)
-    t = dict(
-        kernel=time_gpu(torch, lambda: scatter.ordered_index_add(
-            bc, order, vc), 50, 40),
-        sort_and_kernel=time_gpu(torch, lambda: scatter.ordered_index_add(
-            bc, ic, vc), 20, 40),
-        plain=time_gpu(torch, lambda: scatter.segment_sum_plain(
-            bc.view(-1, 1), order, vc.view(-1, 1)), 2, 10),
-        atomic_index_add=time_gpu(torch, lambda: bc.index_add_(0, ic, vc),
-                                  50, 40))
-    m = t_len = idx.shape[0]
-    # keys + perm (int64) and the values read once, the targets read and
-    # written once
-    nbytes = 8 * m + 8 * m + 4 * m + 2 * 4 * t_len
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[scatter] propagate 640x480, one 1-D call (CUDA events, ms): "
-        f"{json.dumps(t)}; bound {bound_ms:.5f} ms (bytes: {nbytes}); "
-        f"{card}")
-
-    app_t = {}
-    for name, buf, idx, vals in scatter_cases(torch,
-                                              np.random.default_rng(0)):
-        if not name.startswith("appearance-"):
+    clock_max, clock_now = sm_clocks_mhz()
+    timed = {}
+    for name, buf, idx, vals in cases:
+        if name not in SCATTER_TIMED:
             continue
         bc, ic, vc = (torch.as_tensor(x, device="cuda")
                       for x in (buf, idx, vals))
-        order = scatter.sort_index(ic)
-        m, t_len = idx.shape[0], buf.shape[0]
-        app_t[name] = dict(
-            kernel=time_gpu(torch, lambda: scatter.ordered_index_add(
-                bc, order, vc), 5, 10),
-            sort_and_kernel=time_gpu(torch, lambda: scatter.ordered_index_add(
-                bc, ic, vc), 5, 10),
-            atomic_index_add=time_gpu(torch, lambda: bc.index_add_(
-                0, ic, vc), 20, 10),
-            bound=(20 * m + 8 * t_len) / HBM_BYTES_PER_S * 1e3,
-            longest_segment=int(np.bincount(idx).max()))
-    log(f"[scatter] the appearance descriptor's shapes at 640x480 (CUDA "
-        f"events, ms per call; bound = bytes over {HBM_BYTES_PER_S:g} B/s): "
-        f"{json.dumps(app_t)}; {card}")
+        t_len, m = bc.shape[0], ic.shape[0]
+        cols = vc.numel() // max(m, 1)
+        b2, v2 = bc.view(t_len, cols), vc.view(m, cols)
+        order = scatter.sort_index(ic, t_len)
+        fns = [("order_and_fold",
+                lambda: scatter.ordered_index_add(bc, ic, vc)),
+               ("fold", lambda: scatter.segment_sum(b2, order, v2)),
+               ("fold_short",
+                lambda: scatter.segment_sum(b2, order, v2, "short")),
+               ("fold_long",
+                lambda: scatter.segment_sum(b2, order, v2, "long")),
+               ("order", lambda: scatter.sort_index(ic, t_len)),
+               ("torch_sort", lambda: torch.sort(ic, stable=True)),
+               ("atomic_index_add", lambda: bc.index_add_(0, ic, vc))]
+        if walk is not None:
+            keys, perm64 = torch.sort(ic, stable=True)
+
+            def walk_route():
+                k, p = torch.sort(ic, stable=True)
+                walk(torch, k, p, v2, b2)
+            fns += [("sort_and_walk", walk_route),
+                    ("walk_kernel",
+                     lambda: walk(torch, keys, perm64, v2, b2))]
+        big = name.startswith("propagate")
+        t = time_in_turns(torch, fns, 20 if big else 10, 20)
+        if big:
+            t["fold_plain"] = time_gpu(torch, lambda: scatter.segment_sum_plain(
+                b2, order, v2), 2, 6)
+            t["order_plain"] = time_gpu(
+                torch, lambda: scatter.segment_order_plain(ic, t_len), 2, 10)
+        t["kernels_us"] = kernel_breakdown(
+            torch, lambda: (scatter.sort_index(ic, t_len),
+                            scatter.segment_sum(b2, order, v2)))
+        t["bound_bytes"], t["bound_chain"] = fold_bounds(idx, t_len, cols,
+                                                         clock_max)
+        t["order_bound_bytes"] = order_bound(m, t_len)
+        t["longest_segment"] = int(np.bincount(idx).max())
+        t["regime"] = scatter.regime_for(m, t_len)
+        timed[name] = t
+        log(f"[scatter] {name} times in turns (CUDA events, ms per call; "
+            f"bounds: bytes at {HBM_BYTES_PER_S:g} B/s, chain at "
+            f"{FADD_CYCLES} cycles per add at {clock_max:g} MHz, now "
+            f"{clock_now:g} MHz): {json.dumps(t)}; {card}")
 
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -1474,7 +1631,7 @@ def scatter_phase(torch, card):
         f"{'device-side assert' in proc.stderr}")
     assert proc.returncode != 0 and "no error" not in proc.stdout, tail
     assert "device-side assert" in proc.stderr, tail
-    return err, t, bound_ms, app_t
+    return err, order_err, timed, clock_max
 
 
 def circle_graph(n, seed=7, sigma=0.01):
@@ -1513,12 +1670,12 @@ def pgo_sparse_phase(torch, card):
     port. Checks: every vertex within 8e-3 of the ground truth (JAX's bound
     at 340), the card within PGO_GAP of the CPU port, and host pulls = one
     per GN iteration + the final poses: no pull inside the CG loop.
-    Returns the segment-sum launches."""
+    Records the scatter launches of the card's solves."""
     from lsd_slam_tpu_torch.lie import np_sim3 as nps
     from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
     from lsd_slam_tpu_torch.ops import scatter
 
-    launches = 0
+    launches = [0, 0]
     for n in (340, 1000):
         verts, edges, gt = circle_graph(n)
         graphs = {}
@@ -1530,12 +1687,13 @@ def pgo_sparse_phase(torch, card):
                 g.add_edge(*e)
             if dev == "cuda":
                 torch.cuda.synchronize()
-                scatter.LAUNCHES = 0
+                scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
             t0 = time.perf_counter()
             g.optimize(12)
             if dev == "cuda":
                 torch.cuda.synchronize()
-                launches += scatter.LAUNCHES
+                counts = scatter.LAUNCHES, scatter.ORDER_LAUNCHES
+                launches = [a + b for a, b in zip(launches, counts)]
             graphs[dev] = (g, time.perf_counter() - t0)
         g, secs = graphs["cuda"]
         cg = g.cg_iters
@@ -1550,11 +1708,13 @@ def pgo_sparse_phase(torch, card):
             f"{secs * 1e3 / len(cg):.1f} ms per GN iteration (CPU port "
             f"{graphs['cpu'][1] * 1e3:.1f} ms per solve); host pulls "
             f"{g.n_pulls} = {len(cg)} GN + 1, {g.n_pulls / len(cg):.2f} per "
-            f"GN iteration; segment_sum launches {scatter.LAUNCHES}; {card}")
+            f"GN iteration; segment_sum launches {counts[0]}, "
+            f"segment_order launches {counts[1]}; {card}")
         assert err < 8e-3, (n, err)
         assert gap < PGO_GAP, (n, gap)
         assert g.n_pulls == len(cg) + 1, (g.n_pulls, cg)
-    return launches
+    SEGMENT_LAUNCHES["pgo-sparse"], ORDER_LAUNCHES["pgo-sparse"] = launches
+    assert min(launches) > 0, launches
 
 
 def appearance_phase(torch, card):
@@ -1565,8 +1725,8 @@ def appearance_phase(torch, card):
     noise of tests/test_appearance.py's 200-keyframe test is too alike at
     1000 for the ratio test): ms per `add` and per `query`, and a noisy
     revisit of keyframe 300 rolled by 180 degrees must retrieve it (on
-    the CPU port: best 0.9995, second 0.913, ratio 1.095 > 1.08). Returns
-    the segment-sum launches."""
+    the CPU port: best 0.9995, second 0.913, ratio 1.095 > 1.08). Records
+    the scatter launches of the card's runs."""
     from lsd_slam_tpu_torch.frames import build_frame
     from lsd_slam_tpu_torch.mapping import appearance as app
     from lsd_slam_tpu_torch.ops import scatter
@@ -1581,10 +1741,10 @@ def appearance_phase(torch, card):
     planes = [pyr.images[2], pyr.gx[2], pyr.gy[2]]
     thetas = torch.as_tensor(np.linspace(0, 2 * np.pi, app.N_ROTATIONS,
                                          endpoint=False), dtype=torch.float32)
-    scatter.LAUNCHES = 0
+    scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
     got = app._descriptor_rotations(*planes, thetas.cuda())
     torch.cuda.synchronize()
-    launches = scatter.LAUNCHES
+    launches = [scatter.LAUNCHES, scatter.ORDER_LAUNCHES]
     want = app._descriptor_rotations(*(p.cpu() for p in planes), thetas)
     err = float((got.cpu() - want).abs().max())
     desc_ms = time_gpu(torch, lambda: app._descriptor_rotations(
@@ -1622,7 +1782,7 @@ def appearance_phase(torch, card):
     pyrs = [fake_pyr(b) for b in base]
     index = app.AppearanceIndex(device="cuda")
     torch.cuda.synchronize()
-    scatter.LAUNCHES = 0
+    scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
     t0 = time.perf_counter()
     for k, p in enumerate(pyrs):
         index.add(k * 10, p)
@@ -1635,17 +1795,19 @@ def appearance_phase(torch, card):
         hit = index.query(q, query_id=1_000_000)
         q_ms.append((time.perf_counter() - t0) * 1e3)
         assert hit == 3000, hit
-    launches += scatter.LAUNCHES
+    launches = [launches[0] + scatter.LAUNCHES,
+                launches[1] + scatter.ORDER_LAUNCHES]
     log(f"[appearance] index of {len(index)} keyframes (capacity "
         f"{index._capacity}): {add_ms:.3f} ms per add, query "
         f"{statistics.median(q_ms):.3f} ms median of 5 (one (N,) pull); a "
-        f"180-degree roll of keyframe 3000 retrieves {hit}; segment_sum "
-        f"launches {launches}; {card}")
+        f"180-degree roll of keyframe 3000 retrieves {hit}; (segment_sum, "
+        f"segment_order) launches {launches}; {card}")
 
     # the engine's merge path at full width, card against the CPU port
-    scatter.LAUNCHES = 0
+    scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
     got = appearance_merge(torch, "cuda")
-    launches += scatter.LAUNCHES
+    launches = [launches[0] + scatter.LAUNCHES,
+                launches[1] + scatter.ORDER_LAUNCHES]
     want = appearance_merge(torch, "cpu")
     log(f"[appearance] find_candidates at 640x480 (use_fabmap=True, six "
         f"keyframes chained by constraints, a query rolled by 0.3 rad "
@@ -1655,7 +1817,8 @@ def appearance_phase(torch, card):
     assert euclid == [] and fabmap_id == 200, got
     assert cands == [100, 200, 300], got
     assert (n_queries, n_hits) == (1, 1), got
-    return launches
+    SEGMENT_LAUNCHES["appearance"], ORDER_LAUNCHES["appearance"] = launches
+    assert min(launches) > 0, launches
 
 
 def appearance_merge(torch, dev):
@@ -1743,10 +1906,12 @@ def warmup_run(mode: str) -> int:
         for i in range(4)]
     out = dict(mode=mode)
     if mode == "with":
-        stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
+        stencil.FUSED_LAUNCHES = 0
+        scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         out["warmup"] = warmup(cam, cfg)
         out["warmup_fused"] = stencil.FUSED_LAUNCHES
         out["warmup_segment_sum"] = scatter.LAUNCHES
+        out["warmup_segment_order"] = scatter.ORDER_LAUNCHES
     t0 = time.perf_counter()
     sys_ = SlamSystem(cam, cfg)
     sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
@@ -1764,7 +1929,8 @@ def warmup_run(mode: str) -> int:
 
 def warmup_phase(card):
     """Phase [warmup]: `--warmup-run` without, then with warm-up, each in a
-    fresh process; returns warm-up's fused and segment-sum launches."""
+    fresh process; returns warm-up's fused launches and records its
+    scatter launches."""
     got = {}
     for mode in ("without", "with"):
         proc = subprocess.run(
@@ -1783,12 +1949,16 @@ def warmup_phase(card):
         f"{got['without']['init_ms']:.1f} ms, first frame steps "
         f"{[round(x, 1) for x in got['without']['frame_ms']]} ms; after "
         f"warmup(cam, cfg) ({w['warmup']}, {w['warmup_fused']} fused and "
-        f"{w['warmup_segment_sum']} segment_sum launches) gt_depth_init "
+        f"{w['warmup_segment_sum']} segment_sum and "
+        f"{w['warmup_segment_order']} segment_order launches) gt_depth_init "
         f"{w['init_ms']:.1f} ms, first frame steps "
         f"{[round(x, 1) for x in w['frame_ms']]} ms; {card}")
     assert w["warmup"]["keyframes"] >= 2 and w["warmup"]["reloc_warmed"]
     assert w["warmup_fused"] > 0 and w["warmup_segment_sum"] > 0
-    return w["warmup_fused"], w["warmup_segment_sum"]
+    assert w["warmup_segment_order"] > 0
+    SEGMENT_LAUNCHES["warmup"] = w["warmup_segment_sum"]
+    ORDER_LAUNCHES["warmup"] = w["warmup_segment_order"]
+    return w["warmup_fused"]
 
 
 def check_kernels(torch, stencil, reg_dist_var, diff_facs, validity_th):
@@ -1919,6 +2089,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu",
                     help="an earlier stencil source to time against")
+    ap.add_argument("--baseline-segment-cu",
+                    help="the sort-and-walk segment_sum.cu of commit "
+                    "7824632 (checked by its sha256), to time its route "
+                    "(stable torch.sort + its kernel) in turns in "
+                    "[scatter]")
     ap.add_argument("--pipeline-turns", action="store_true",
                     help="only time lag 0 against lag 3, in turns")
     ap.add_argument("--counted-runner", nargs=argparse.REMAINDER,
@@ -1964,13 +2139,26 @@ def main() -> int:
     extra = {}
     if args.baseline_cu:
         extra["baseline"] = os.path.abspath(args.baseline_cu)
+    if args.baseline_segment_cu:
+        with open(args.baseline_segment_cu, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        if digest != SORT_AND_WALK_SHA256:
+            print(f"chip_smoke: {args.baseline_segment_cu} (sha256 {digest}) "
+                  "is not the sort-and-walk segment_sum.cu of commit "
+                  "7824632, the only source whose ABI --baseline-segment-cu "
+                  "binds", file=sys.stderr)
+            return 2
+        extra["segment_sum_walk"] = os.path.abspath(args.baseline_segment_cu)
     secs = build.build(verbose=True, sources=extra)
     log(f"[build] {json.dumps(secs)} total {time.perf_counter() - t0:.2f} s")
     if args.pipeline_turns:
         pipeline_turns(torch, card)
         return 0
-    baseline = None
-    if extra:
+    baseline = walk = None
+    if "segment_sum_walk" in extra:
+        walk = bind_walk_segment_sum(ctypes.CDLL(str(build.library_path(
+            "segment_sum_walk", extra["segment_sum_walk"]))))
+    if "baseline" in extra:
         lib = build.library_path("baseline", extra["baseline"])
         baseline = stencil.bind(ctypes.CDLL(str(lib)),
                                 "lsd_regularize_accumulators")
@@ -1991,16 +2179,16 @@ def main() -> int:
     fused_bound, fused_by = bound(38, 25 * 12 + 10)
     log(f"[kernel] 480x640 bounds: accumulators {acc_bound:.5f} ms "
         f"({acc_by}), fused {fused_bound:.5f} ms ({fused_by})")
-    seg_err, seg_t, seg_bound, seg_app_t = scatter_phase(torch, card)
+    seg_err, order_err, seg_t, sm_clock = scatter_phase(torch, card, walk)
 
     phase_done("build, kernels and scatter")
 
     # ---- 13., 14., 16. sparse PGO, appearance index, warm-up ----
-    pgo_seg = pgo_sparse_phase(torch, card)
+    pgo_sparse_phase(torch, card)
     phase_done("pgo-sparse")
-    app_seg = appearance_phase(torch, card)
+    appearance_phase(torch, card)
     phase_done("appearance")
-    warm_fused, warm_seg = warmup_phase(card)
+    warm_fused = warmup_phase(card)
     phase_done("warmup")
 
     # ---- 4. VO at full width ----
@@ -2008,10 +2196,12 @@ def main() -> int:
                            "vo_orbit_640x480.json")) as f:
         ref = json.load(f)
     with counted_plain(stencil) as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = scatter.LAUNCHES = 0
+        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
         launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
         SEGMENT_LAUNCHES["vo"] = scatter.LAUNCHES
+        ORDER_LAUNCHES["vo"] = scatter.ORDER_LAUNCHES
     st = sys_.stats.snapshot()
     n = ref["n_frames"]
     traj = sys_.trajectory_array()
@@ -2043,6 +2233,7 @@ def main() -> int:
     log(f"[vo] regularize_fused launches {fused_launches}, "
         f"regularize_accumulators launches {launches}, plain-version calls "
         f"{plain_calls[0]}, segment_sum launches {SEGMENT_LAUNCHES['vo']}, "
+        f"segment_order launches {ORDER_LAUNCHES['vo']}, "
         f"over {n - 1} tracked frames")
     log(f"[vo] stage ms (dispatch windows): {sys_.timers.summary()}")
     assert sys_.tracking_is_good, "tracking lost"
@@ -2144,10 +2335,20 @@ def main() -> int:
     # ---- 11. and 12. the product surface: undistortion, the runner ----
     undistort_phase(torch, card)
     phase_done("undistort")
-    cli_fused, cli_seg = cli_phase(torch, card)
+    cli_fused = cli_phase(torch, card)
     phase_done("cli")
 
 
+    prop = seg_t["propagate-640x480"]
+    seg_common = dict(
+        source="lsd_slam_tpu_torch/csrc/segment_sum.cu",
+        replaces="lsd_slam_tpu/depth/regularize.py:239-244 (XLA's "
+                 "scatter-add in propagate; no Pallas counterpart)",
+        also_replaces=["lsd_slam_tpu/mapping/pose_graph.py:57-63",
+                       "lsd_slam_tpu/mapping/sparse_pgo.py:69-93",
+                       "lsd_slam_tpu/mapping/appearance.py:93-105"],
+        shape="propagate 640x480, pass 2's (M, 4) call",
+        sm_clock_mhz=sm_clock)
     common = dict(route="cuda",
                   source="lsd_slam_tpu_torch/csrc/regularize_stencil.cu",
                   replaces="lsd_slam_tpu/ops/pallas_stencil.py:94",
@@ -2189,26 +2390,25 @@ def main() -> int:
              library_note="no single PyTorch call computes the five "
                           "accumulators; off the main path since "
                           "regularize() calls the fused entry"),
-        dict(name="segment_sum", route="cuda",
-             source="lsd_slam_tpu_torch/csrc/segment_sum.cu",
-             replaces="lsd_slam_tpu/depth/regularize.py:169 (XLA's "
-                      "scatter-add in propagate; no Pallas counterpart)",
-             also_replaces=["lsd_slam_tpu/mapping/pose_graph.py:57-63",
-                            "lsd_slam_tpu/mapping/sparse_pgo.py:63-99",
-                            "lsd_slam_tpu/mapping/appearance.py:92-105"],
-             launches=(sum(SEGMENT_LAUNCHES.values())
-                       + sum(cli_seg.values()) + pgo_seg + app_seg
-                       + warm_seg),
-             path_launches=dict(SEGMENT_LAUNCHES, cli=cli_seg,
-                                pgo_sparse=pgo_seg, appearance=app_seg,
-                                warmup=warm_seg),
-             max_abs_err=seg_err, ms=seg_t["kernel"],
-             sort_and_kernel_ms=seg_t["sort_and_kernel"],
-             plain_ms=seg_t["plain"], bound_ms=seg_bound,
-             bound_by="bytes", library_ms=seg_t["atomic_index_add"],
+        dict(name="segment_sum", route="cuda", **seg_common,
+             launches=sum(SEGMENT_LAUNCHES.values()),
+             path_launches=SEGMENT_LAUNCHES, max_abs_err=seg_err,
+             ms=prop["fold"], plain_ms=prop["fold_plain"],
+             bound_ms=prop["bound_bytes"], bound_by="bytes",
+             chain_bound_ms=prop["bound_chain"],
+             library_ms=prop["atomic_index_add"],
              library_note="index_add_ (atomic adds, order not fixed)",
-             shape="propagate 640x480, one 1-D call of pass 2",
-             appearance_shapes=seg_app_t),
+             order_and_fold_ms=prop["order_and_fold"],
+             sort_and_walk_ms=prop.get("sort_and_walk"),
+             walk_kernel_ms=prop.get("walk_kernel"), shapes=seg_t),
+        dict(name="segment_order", route="cuda", **seg_common,
+             entry="lsd_segment_order (count, scan, place and sort kernels)",
+             launches=sum(ORDER_LAUNCHES.values()),
+             path_launches=ORDER_LAUNCHES, max_abs_err=order_err,
+             ms=prop["order"], plain_ms=prop["order_plain"],
+             bound_ms=prop["order_bound_bytes"], bound_by="bytes",
+             library_ms=prop["torch_sort"],
+             library_note="torch.sort(idx, stable=True)"),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

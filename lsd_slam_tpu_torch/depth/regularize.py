@@ -31,7 +31,7 @@ from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import DepthFilterConfig, MappingConfig
 from lsd_slam_tpu_torch.ops.interp import bilinear, trunc_int
 from lsd_slam_tpu_torch.ops.regularize_stencil import regularize_fused
-from lsd_slam_tpu_torch.ops.scatter import ordered_index_add, sort_index
+from lsd_slam_tpu_torch.ops.scatter import ordered_index_add
 from lsd_slam_tpu_torch.depth.state import DepthMapState
 
 _DIV_EPS = 1e-10
@@ -214,18 +214,14 @@ def propagate(state: DepthMapState, old_to_new_se3, kf_img, new_img,
     compatible = keep_f & (dcfg.diff_fac_prop_merge * diff * diff
                            <= src_var + tgt_max_var)
 
-    # a dropped source adds +0.0 at its own pixel (see the module note)
-    order = sort_index(torch.where(compatible, flat_idx,
-                                   torch.arange(h * w, device=dev)))
-
-    def scatter_add(vals):
-        return ordered_index_add(torch.zeros((h * w,), device=dev), order,
-                                 torch.where(compatible, vals, zero))
-
-    id_sum = scatter_add(src_id / src_var)
-    ivar_sum = scatter_add(1.0 / src_var)
-    validity_sum = scatter_add(src_validity)
-    count = scatter_add(torch.ones_like(src_id))
+    # a dropped source adds +0.0 at its own pixel (see the module note);
+    # the four sums in one (h*w, 4) call, each column its own fold
+    terms = torch.stack([src_id / src_var, 1.0 / src_var, src_validity,
+                         torch.ones_like(src_id)], dim=1)
+    id_sum, ivar_sum, validity_sum, count = ordered_index_add(
+        torch.zeros((h * w, 4), device=dev),
+        torch.where(compatible, flat_idx, torch.arange(h * w, device=dev)),
+        torch.where(compatible[:, None], terms, zero[:, None])).unbind(1)
 
     tgt_valid = (count > 0).reshape(h, w)
     safe_ivar = torch.clamp_min(ivar_sum, _DIV_EPS).reshape(h, w)

@@ -108,10 +108,10 @@ def _descriptor_rotations(img, gx, gy, thetas, tiles: int = TILES,
 
     # normalized tile mean intensities (a lighting-invariant layout cue)
     cell = (rot * n_tiles + tile).reshape(-1)
-    wsum = ordered_index_add(torch.zeros((n_rot * n_tiles,), device=dev),
-                             cell, inb.to(torch.float32).reshape(-1))
-    isum = ordered_index_add(torch.zeros((n_rot * n_tiles,), device=dev),
-                             cell, img_r.reshape(-1))
+    wsum, isum = ordered_index_add(
+        torch.zeros((n_rot * n_tiles, 2), device=dev), cell,
+        torch.stack([inb.to(torch.float32).reshape(-1), img_r.reshape(-1)],
+                    dim=1)).unbind(1)
     imean = (isum / torch.clamp_min(wsum, 1.0)).reshape(n_rot, n_tiles)
     imean = imean - torch.mean(imean, dim=1, keepdim=True)
     imean = imean / torch.clamp_min(

@@ -41,14 +41,13 @@ def _assemble(poses, efrom, eto, meas_inv, info, huber_delta,
     AtWA, AtWr, chi2 = edge_blocks(poses, efrom, eto, meas_inv, info,
                                    huber_delta)
     n = n_vertices
+    # each add merges the JAX package's consecutive adds, in their order
     H = torch.zeros((n * n, 7, 7), dtype=torch.float32, device=poses.device)
-    ordered_index_add(H, efrom * n + efrom, AtWA)
-    ordered_index_add(H, eto * n + eto, AtWA)
-    ordered_index_add(H, efrom * n + eto, -AtWA)
-    ordered_index_add(H, eto * n + efrom, -AtWA)
+    ordered_index_add(H, torch.cat([efrom * n + efrom, eto * n + eto,
+                                    efrom * n + eto, eto * n + efrom]),
+                      torch.cat([AtWA, AtWA, -AtWA, -AtWA]))
     g = torch.zeros((n, 7), dtype=torch.float32, device=poses.device)
-    ordered_index_add(g, efrom, -AtWr)
-    ordered_index_add(g, eto, AtWr)
+    ordered_index_add(g, torch.cat([efrom, eto]), torch.cat([-AtWr, AtWr]))
     Hd = H.reshape(n, n, 7, 7).permute(0, 2, 1, 3).reshape(n * 7, n * 7)
     return Hd, g.reshape(-1), chi2
 

@@ -19,8 +19,9 @@ device-side mask that freezes x, r, p and rz once |r| / |b| <= tol, which
 gives the early stop's result exactly. The host reads nothing inside the
 loop: each GN iteration pulls its (chi2, max |delta|, CG iterations,
 relative residual) once. Every scatter-add goes through
-`ops.scatter.ordered_index_add` (on the card the edge ends are sorted once
-per solve), so a solve gives the same bits on every run.
+`ops.scatter.ordered_index_add` (on the card both edge ends are ordered
+once per solve, and each pair of adds at `from` and `to` is one call), so
+a solve gives the same bits on every run.
 """
 
 from __future__ import annotations
@@ -48,14 +49,12 @@ def edge_blocks(poses, efrom, eto, meas_inv, info, huber_delta):
     return AtW @ A, (AtW @ r.unsqueeze(-1)).squeeze(-1), chi2
 
 
-def _matvec(blocks, efrom, eto, v):
+def _matvec(blocks, efrom, eto, ends, v):
     """H v without materializing H: per-edge B_e (v_from - v_to) added at
-    `from` and subtracted at `to`. efrom / eto are `sort_index`es."""
-    t = (blocks @ (v[efrom.idx] - v[eto.idx]).unsqueeze(-1)).squeeze(-1)
-    out = torch.zeros_like(v)
-    ordered_index_add(out, efrom, t)
-    ordered_index_add(out, eto, -t)
-    return out
+    `from` and subtracted at `to`, in one add over `ends`, the
+    `sort_index` of cat([efrom, eto])."""
+    t = (blocks @ (v[efrom] - v[eto]).unsqueeze(-1)).squeeze(-1)
+    return ordered_index_add(torch.zeros_like(v), ends, torch.cat([t, -t]))
 
 
 def pcg_solve(poses, fixed_mask, efrom, eto, meas_inv, info, huber_delta,
@@ -64,7 +63,8 @@ def pcg_solve(poses, fixed_mask, efrom, eto, meas_inv, info, huber_delta,
 
     Returns (delta (N, 7), chi2 sum, CG iterations used, relative residual)
     as device tensors."""
-    sfrom, sto = sort_index(efrom), sort_index(eto)
+    # both edge ends in one order, built once per solve
+    ends = sort_index(torch.cat([efrom, eto]), n_vertices)
     blocks, AtWr, chi2 = edge_blocks(poses, efrom, eto, meas_inv, info,
                                      huber_delta)
     free = ~fixed_mask[:, None]                                  # (N, 1)
@@ -72,15 +72,13 @@ def pcg_solve(poses, fixed_mask, efrom, eto, meas_inv, info, huber_delta,
 
     g = torch.zeros((n_vertices, 7), dtype=torch.float32,
                     device=poses.device)
-    ordered_index_add(g, sfrom, -AtWr)
-    ordered_index_add(g, sto, AtWr)
+    ordered_index_add(g, ends, torch.cat([-AtWr, AtWr]))
     b = torch.where(free, -g, zero)
 
     # diagonal blocks + LM damping (the dense path's rule)
     D = torch.zeros((n_vertices, 7, 7), dtype=torch.float32,
                     device=poses.device)
-    ordered_index_add(D, sfrom, blocks)
-    ordered_index_add(D, sto, blocks)
+    ordered_index_add(D, ends, torch.cat([blocks, blocks]))
     damp = lam * (torch.abs(torch.diagonal(D, dim1=1, dim2=2)) + 1.0)
     D = D + torch.diag_embed(damp)
     eye = torch.eye(7, dtype=torch.float32, device=poses.device).expand_as(D)
@@ -89,7 +87,7 @@ def pcg_solve(poses, fixed_mask, efrom, eto, meas_inv, info, huber_delta,
 
     def matvec(v):
         v = torch.where(free, v, zero)
-        hv = _matvec(blocks, sfrom, sto, v) + damp * v
+        hv = _matvec(blocks, efrom, eto, ends, v) + damp * v
         return torch.where(free, hv, zero)
 
     def precond(r):
