@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (13, 14 and 16 run right after 3, 15 after 10); any failure
+Phases (13, 17, 14 and 16 run right after 3, 15 after 10, 18 inside 12);
+any failure
 raises, so the script exits non-zero and prints no ok line:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every CUDA kernel of the port, from the sources in the
@@ -165,6 +166,35 @@ raises, so the script exits non-zero and prints no ok line:
                640x480 engine's gt_depth_init and first frame steps, with
                and without `warmup(cam, cfg)` before it; warm-up's report
                and its kernel launches.
+ 17. mesh    — parallel/distributed.py in this process on
+               `make_mesh(4, device="cuda")`, four shards of one card (no
+               NCCL collective runs): the gathered dense assembly of a
+               64-vertex circle graph equals `_assemble` bit for bit;
+               `PoseGraph(mesh)` (mesh_min_edges = 0, the sharded PCG step)
+               on [pgo-sparse]'s 1000-vertex circle within 8e-3 of the
+               ground truth and PGO_GAP of the one-device sparse solve; the
+               sharded quick track of 64 lanes at 640x480 in both
+               directions against the unsharded batch (flags equal,
+               ref_to_frame within QUICK_BOUND); every second pass bit for
+               bit; segment kernels launched, no plain version; ms per
+               assembly, solve and quick batch, mesh against one device.
+               On a host with more than one card the shards spread over
+               the cards in turn (cross-card copies, each shard's kernels
+               on its own card), and [multihost-nccl] follows: one process
+               per card (NCCL by `pick_backend`'s rule, `--pgo-rank`) runs
+               the SPMD CG PGO of [pgo-sparse]'s 1000-vertex circle, whose
+               poses must equal the same program on the one-process mesh
+               of one shard per card bit for bit. One card skips it.
+ 18. multihost — inside [cli], after its hz:0 runs: the runner on the same
+               folder in two fresh processes started together on the card
+               (`--multihost-gates --counted-runner ... multihost:R:2:P:Q`,
+               gloo: the two ranks share the card), both exit 0, rank 1
+               prints `multihost worker done`; rank 0's keyframe ids and
+               edge pairs equal [cli]'s in-process run's and its TUM rows
+               lie within 5e-3 of them; the frontend fanned out and ran the
+               SPMD PGO; rank 0 launches regularize_fused, both ranks the
+               segment kernels, neither a plain version; the backend each
+               rank logged, the pair's fps beside [cli]'s hz:0 fps.
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -187,7 +217,9 @@ and its kernel alone in turns with the current ones in [scatter].
     python3 chip_smoke.py --counted-runner files:DIR calib:FILE out:DIR ...
 
 runs `lsd_slam_tpu_torch.io.runner.main` with those arguments and prints
-its kernel counts as the last line (what [cli] runs for each runner call).
+its kernel counts as the last line (what [cli] runs for each runner call);
+`--multihost-gates` before it lowers the multi-process gates
+([multihost]).
 
     python3 chip_smoke.py --warmup-run with|without
 
@@ -1038,31 +1070,156 @@ def _runner(args, timeout=900):
     assert lines[-1].startswith(COUNTS_TAG), proc.stdout[-3000:]
     counts = json.loads(lines[-1][len(COUNTS_TAG):])
     assert (counts["fused"] > 0 and counts["accumulators"] == 0
-            and counts["plain"] == 0), (args, counts)
-    return (proc.stdout, float(done[0].split("(")[1].split(" fps")[0]),
-            counts)
+            and counts["plain"] == 0 and counts["segment_plain"] == 0), (
+        args, counts)
+    return proc.stdout, done_fps(done[0]), counts
 
 
-def counted_runner(argv) -> int:
+def done_fps(line: str) -> float:
+    """Frames per second from the runner's `done: N frames in T s` line
+    (its own fps field has one decimal)."""
+    head = line.split(" frames in ")
+    return int(head[0].split()[-1]) / float(head[1].split("s ")[0])
+
+
+def counted_runner(argv, multihost_gates=False) -> int:
     """`chip_smoke.py --counted-runner ARGS`: the dataset runner's own
     entry, `io.runner.main(ARGS)`, as `python -m lsd_slam_tpu_torch.io.runner
     ARGS` calls it, with the kernel launch counters zeroed just before and
     the plain versions counted; the counts read just after are the last
-    line, behind COUNTS_TAG."""
+    line, behind COUNTS_TAG. On a `multihost:` run they add the frontend's
+    fan-outs and SPMD PGO calls (rank 0) or the commands served (ranks >=
+    1), and the collectives run and bytes staged through host memory;
+    `multihost_gates` (`--multihost-gates`) lowers the fan-out gate to 2
+    candidates and the SPMD PGO gate to 1 edge, as
+    tests/multihost_engine_worker.py does, and, before rank 0's frontend
+    stops, reads the run's fan-outs and runs `reloc_check` on the engine
+    and `fanout_check` on the keyframes it mirrored."""
     from lsd_slam_tpu_torch.io import runner
+    from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.ops import scatter
+    from lsd_slam_tpu_torch.parallel import multihost_engine
+    from lsd_slam_tpu_torch.system import SlamSystem
 
-    with counted_plain(stencil) as plain_calls:
-        stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
-        scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
-        runner.main(argv)
-        counts = dict(fused=stencil.FUSED_LAUNCHES,
-                      accumulators=stencil.LAUNCHES, plain=plain_calls[0],
-                      segment_sum=scatter.LAUNCHES,
-                      segment_order=scatter.ORDER_LAUNCHES)
+    if multihost_gates:
+        multihost_engine.MultihostFrontend.min_candidates = 2
+        PoseGraph.multihost_min_edges = 1
+    seen = {}
+    bringup, serve = runner.bringup_multihost, multihost_engine.serve
+
+    def bringup_seen(*a, **k):
+        seen["frontend"] = bringup(*a, **k)
+        return seen["frontend"]
+
+    def serve_seen(channel, mesh=None):
+        seen["mesh"] = mesh
+        seen["served"] = serve(channel, mesh)
+        return seen["served"]
+
+    stop = multihost_engine.MultihostFrontend.stop
+    finalize = SlamSystem.finalize
+
+    def finalize_seen(sys_):
+        seen["system"] = sys_
+        return finalize(sys_)
+
+    def stop_checked(frontend):
+        seen["run_fanouts"] = frontend.fanouts
+        seen["reloc_check"] = reloc_check(seen["system"], frontend)
+        seen["fanout_check"] = fanout_check(frontend)
+        stop(frontend)
+
+    runner.bringup_multihost = bringup_seen
+    multihost_engine.serve = serve_seen
+    if multihost_gates:
+        SlamSystem.finalize = finalize_seen
+        multihost_engine.MultihostFrontend.stop = stop_checked
+    try:
+        with counted_plain(stencil) as plain_calls, \
+                counted_segment_plain() as seg_plain:
+            stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+            scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+            runner.main(argv)
+            counts = dict(fused=stencil.FUSED_LAUNCHES,
+                          accumulators=stencil.LAUNCHES,
+                          plain=plain_calls[0], segment_plain=seg_plain[0],
+                          segment_sum=scatter.LAUNCHES,
+                          segment_order=scatter.ORDER_LAUNCHES)
+    finally:
+        runner.bringup_multihost = bringup
+        multihost_engine.serve = serve
+        multihost_engine.MultihostFrontend.stop = stop
+        SlamSystem.finalize = finalize
+    frontend = seen.get("frontend")
+    if frontend is not None:
+        counts.update(fanouts=frontend.fanouts, pgo_calls=frontend.pgo_calls,
+                      pgo_secs=frontend.pgo_secs,
+                      run_fanouts=seen.get("run_fanouts"),
+                      reloc_check=seen.get("reloc_check"),
+                      fanout_check=seen.get("fanout_check"),
+                      collectives=frontend.mesh.collectives,
+                      collective_secs=frontend.mesh.collective_secs,
+                      staged_bytes=frontend.mesh.staged_bytes)
+    elif "served" in seen:
+        counts.update(served=seen["served"],
+                      collectives=seen["mesh"].collectives,
+                      collective_secs=seen["mesh"].collective_secs,
+                      staged_bytes=seen["mesh"].staged_bytes)
     log(COUNTS_TAG + json.dumps(counts))
     return 0
+
+
+def reloc_check(sys_, frontend) -> dict:
+    """The engine's relocaliser (`KeyFrameGraph.relocalize`, which names
+    the keyframes itself) on the last keyframe's frame, fanned out through
+    the frontend, against the same call on rank 0 alone (the frontend
+    detached). Returns the keyframe picked, the fan-outs and quick_syncs
+    the fanned call made, whether both calls pick the same keyframe and
+    the max |init difference|."""
+    graph = sys_.backend.graph
+    pyr = sys_.keyframes[-1].pyr
+    fanouts = frontend.fanouts
+    syncs = sys_.stats.snapshot().get("quick_syncs", 0)
+    hit = graph.relocalize(pyr)
+    made = frontend.fanouts - fanouts
+    bumped = sys_.stats.snapshot().get("quick_syncs", 0) - syncs
+    graph.multihost = None
+    try:
+        alone = graph.relocalize(pyr)
+    finally:
+        graph.multihost = frontend
+    same = (hit is None) == (alone is None) and (
+        hit is None or hit[0].id == alone[0].id)
+    gap = (float(np.abs(np.asarray(hit[1]) - np.asarray(alone[1])).max())
+           if same and hit is not None else 0.0 if same else float("inf"))
+    return dict(kf=None if hit is None else hit[0].id, fanouts=made,
+                quick_syncs=bumped, same=same, gap=gap)
+
+
+def fanout_check(frontend) -> dict:
+    """Both quick-track fan-outs over every keyframe rank 0 mirrored: the
+    last keyframe's frame quad against every keyframe's point set, and its
+    point set against every keyframe's frame quad, split round-robin over
+    the ranks, against the same batches on rank 0 alone. Returns the
+    lanes, the max |ref_to_frame difference| and whether the good flags
+    are equal."""
+    from lsd_slam_tpu_torch.parallel import multihost_engine as mhe
+
+    local = frontend.backend
+    ids = sorted(local.permaref)
+    pts, quad = local.permaref[ids[-1]]
+    inits = np.tile(np.array([1, 0, 0, 0, 0, 0, 0], np.float32),
+                    (len(ids), 1))
+    gap, same = 0.0, True
+    for fanned, alone in (
+            (frontend.quick_refs(quad, ids, inits),
+             local.quick_refs(mhe._to_host(quad), ids, inits)),
+            (frontend.quick_frames(pts, ids, inits),
+             local.quick_frames(mhe._to_host(pts), ids, inits))):
+        gap = max(gap, float(np.abs(fanned[0][0] - alone[0][0]).max()))
+        same = same and bool(np.array_equal(fanned[0][1], alone[0][1]))
+    return dict(lanes=len(ids), gap=gap, flags_equal=same)
 
 
 def _runner_outputs(out, n_frames, need_graph=True):
@@ -1276,6 +1433,11 @@ def cli_phase(torch, card):
             len(exact), exact.max())
         assert tum_gap <= 1e-6, tum_gap
 
+        t0 = time.perf_counter()
+        launches["multihost_rank0"] = multihost_phase(
+            card, frames, calib, root, ikfs, iedges, mine, fps)
+        log(f"[time] multihost pair took {time.perf_counter() - t0:.1f} s")
+
         # checkpoint on frames 0..CLI_SPLIT-1, resume on the rest
         halves = [os.path.join(root, n) for n in ("first", "second")]
         for k, d in enumerate(halves):
@@ -1452,26 +1614,41 @@ def order_bound(m, n_targets):
 def kernel_breakdown(torch, fn, calls=20):
     """Device microseconds per call of `fn` by kernel (torch.profiler's
     `key_averages`, the card's activity only; a kernel's name cut to its
-    function's name). PERF.md reads it, so a profiler that sees no kernel
-    fails the phase."""
+    function's name). The breakdown is informational: a profiler that
+    cannot start or sees no kernel on the card (CUPTI tracing is not
+    available on every machine) logs a note and gives None, and the
+    CUDA-event times of the same calls stand; a failure of `fn` itself
+    propagates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:  # noqa: BLE001 - informational breakdown
+        log(f"[scatter] profiler unavailable: {exc!r}")
+        prof = None
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or not e.device_time_total:
-            continue
-        name = e.key.replace("void ", "").replace(
-            "(anonymous namespace)::", "")
-        name = "torch fill" if "FillFunctor" in name else name.split("(")[0]
-        out[name] = out.get(name, 0.0) + e.device_time_total / calls
-    assert out, "[scatter] torch.profiler saw no kernel on the card"
+    if prof is not None:
+        prof.stop()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or not e.device_time_total:
+                continue
+            name = e.key.replace("void ", "").replace(
+                "(anonymous namespace)::", "")
+            name = ("torch fill" if "FillFunctor" in name
+                    else name.split("(")[0])
+            out[name] = out.get(name, 0.0) + e.device_time_total / calls
+    if not out:
+        log("[scatter] torch.profiler saw no kernel on the card: no "
+            "breakdown by kernel; the CUDA-event times of the order and "
+            "the fold stand")
+        return None
     return {k: round(v, 3) for k, v in out.items()}
 
 
@@ -1511,7 +1688,8 @@ def scatter_phase(torch, card, walk=None):
     and with `walk` (`--baseline-segment-cu`) the sort-and-walk route
     (stable torch.sort + that kernel) and its kernel alone; the plain
     versions at propagate's shape; the device time of the order step and
-    the fold by kernel (torch.profiler); each shape's bounds. Last, a
+    the fold by kernel (torch.profiler, where it traces the card; else
+    None); each shape's bounds. Last, a
     target out of range fails the count kernel's device-side assert, in a
     process of its own (the assert ends that process's CUDA context).
     Returns the kernel lines' numbers."""
@@ -1715,6 +1893,429 @@ def pgo_sparse_phase(torch, card):
         assert g.n_pulls == len(cg) + 1, (g.n_pulls, cg)
     SEGMENT_LAUNCHES["pgo-sparse"], ORDER_LAUNCHES["pgo-sparse"] = launches
     assert min(launches) > 0, launches
+
+
+# ---- multi-device and multi-process: the mesh, the worker ranks
+
+MESH_SHARDS = 4
+QUICK_LANES = 64
+QUICK_BOUND = 1e-5
+
+
+@contextlib.contextmanager
+def counted_segment_plain():
+    """Count the calls of the order step's and the fold's plain versions
+    while inside; yields a one-element list holding the count."""
+    from lsd_slam_tpu_torch.ops import scatter
+
+    calls = [0]
+    plains = {name: getattr(scatter, name) for name in (
+        "segment_order_plain", "segment_sum_plain")}
+
+    def counted(fn):
+        def call(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return call
+    for name, fn in plains.items():
+        setattr(scatter, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in plains.items():
+            setattr(scatter, name, fn)
+
+
+def quick_lanes(torch, lanes):
+    """`lanes` quick-track lanes at 640x480: eight BenchScene keyframes
+    (ground-truth depth, var_gt_init_initial) at the quick level, each
+    repeated with perturbed inits, against one later frame; returns
+    (QuickTracker, stacked point sets, frame quad, frame quads, inits,
+    one point set)."""
+    from lsd_slam_tpu_torch.config import LSDConfig
+    from lsd_slam_tpu_torch.frames.pyramid import (build_depth_pyramid,
+                                                   build_frame)
+    from lsd_slam_tpu_torch.lie import np_sim3 as nps
+    from lsd_slam_tpu_torch.tracking import quick_tracker as qt
+    from lsd_slam_tpu_torch.tracking.reference import make_tracking_ref
+    from lsd_slam_tpu_torch.utils import synth
+
+    cfg = LSDConfig()
+    cam = synth.default_camera(640, 480)
+    tracker = qt.QuickTracker(cam, cfg.tracker,
+                              sigma2=cfg.mapping.camera_pixel_noise2)
+    scene = synth.BenchScene(seed=0)
+    poses = synth.bench_trajectory(130)
+    levels = cfg.system.pyramid_levels
+    pts, quads = [], []
+    for i in range(8):
+        img, dep = synth.render_bench(scene, cam, poses[2 * i],
+                                      device="cuda")
+        pyr = build_frame(img, levels, cfg.mapping.min_use_grad)
+        ok = dep > 0
+        idepth = torch.where(ok, 1.0 / torch.where(ok, dep, 1.0), 0.0)
+        ivar = torch.where(ok, 1.0 / cfg.depth.var_gt_init_initial, 0.0)
+        ref = make_tracking_ref(pyr, build_depth_pyramid(idepth, ivar,
+                                                         levels),
+                                with_sim3=False)
+        pts.append(ref.pts[tracker.level])
+        quads.append(pyr.quad[tracker.level])
+    img, _ = synth.render_bench(scene, cam, poses[20], device="cuda")
+    quad = build_frame(img, levels, cfg.mapping.min_use_grad).quad[
+        tracker.level]
+    rng = np.random.default_rng(0)
+    inits = []
+    for k in range(lanes):
+        rel = nps.se3_mul(poses[20], nps.se3_inverse(poses[2 * (k % 8)]))
+        noise = np.concatenate([rng.normal(0, 0.01, 3),
+                                rng.normal(0, 0.005, 3)])
+        inits.append(nps.se3_mul(nps.se3_exp(noise), rel))
+    inits = torch.as_tensor(np.asarray(inits, np.float32), device="cuda")
+    refs = qt.stack_points([pts[k % 8] for k in range(lanes)])
+    frames = torch.stack([quads[k % 8] for k in range(lanes)])
+    return tracker, refs, quad, frames, inits, pts[0]
+
+
+def mesh_phase(torch, card):
+    """Phase [mesh]: the mesh programs of parallel/distributed.py in one
+    process on `make_mesh(MESH_SHARDS, device="cuda")` (the shards spread
+    over the cards in turn: on one card all four are that card, on four
+    cards one shard each): the gathered dense assembly of a 64-vertex
+    circle graph against `_assemble` (bit for bit),
+    `PoseGraph(mesh)` (mesh_min_edges = 0) on [pgo-sparse]'s 1000-vertex
+    circle against the ground truth (8e-3) and the one-device sparse solve
+    (PGO_GAP), the sharded quick track of 64 lanes at 640x480 in both
+    directions against the unsharded batch (flags equal, ref_to_frame
+    within QUICK_BOUND); each a second time, bit for bit. Segment kernels
+    launch, no plain version runs. Returns (segment_sum, segment_order)
+    launches."""
+    from lsd_slam_tpu_torch.lie import np_sim3 as nps
+    from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph, _assemble
+    from lsd_slam_tpu_torch.ops import scatter
+    from lsd_slam_tpu_torch.parallel import (
+        distributed_pgo_normal_equations, make_mesh, sharded_quick_track,
+        sharded_quick_track_frames)
+
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+    where = ("every shard is this card, so the cross-shard sums are ordered "
+             "adds on it" if len(set(mesh.devices)) == 1 else
+             "each shard's blocks and partials are copied to cuda:0 for the "
+             "ordered sums")
+    log(f"[mesh] {mesh.size} shards {[str(d) for d in mesh.devices]} on "
+        f"{torch.cuda.device_count()} card(s): {where}; one process, no NCCL "
+        f"collective runs; {card}")
+
+    def secs(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with counted_segment_plain() as plain:
+        scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+        # the gathered dense assembly, 64 vertices
+        verts, edges, _ = circle_graph(64)
+        pg = PoseGraph(device="cuda", mesh=mesh)
+        for i, p in enumerate(verts):
+            pg.add_vertex(p, fixed=(i == 0))
+        for e in edges:
+            pg.add_edge(*e)
+        nb, a = pg._padded_arrays(mesh.size)
+        args = [torch.as_tensor(a[k], device="cuda") for k in (
+            "poses", "efrom", "eto", "meas_inv", "info", "delta")]
+        assemble = distributed_pgo_normal_equations(mesh, nb)
+        H, g, chi2 = assemble(*args)
+        H1, g1, c1 = _assemble(*args, nb)
+        (H2, g2, chi2_2), mesh_s = secs(lambda: assemble(*args))
+        one_s = secs(lambda: _assemble(*args, nb))[1]
+        same = (torch.equal(H, H1) and torch.equal(g, g1)
+                and torch.equal(chi2, torch.sum(c1)))
+        again = (torch.equal(H, H2) and torch.equal(g, g2)
+                 and torch.equal(chi2, chi2_2))
+        log(f"[mesh] dense assembly, {len(verts)} vertices ({nb} padded), "
+            f"{len(edges)} edges ({len(a['efrom'])} padded) over "
+            f"{mesh.size} shards: H, g, chi2 equal to `_assemble` bit for "
+            f"bit {same}, second pass bit-equal {again}; "
+            f"{mesh_s * 1e3:.2f} ms mesh, {one_s * 1e3:.2f} ms one device "
+            f"(synchronised host clock, the second call of each)")
+        assert same and again
+
+        # PoseGraph(mesh) on the 1000-vertex circle: the sharded PCG step
+        verts, edges, gt = circle_graph(1000)
+        runs = {}
+        for name in ("mesh", "mesh-again", "one device"):
+            g_ = PoseGraph(device="cuda",
+                           mesh=None if name == "one device" else mesh)
+            g_.mesh_min_edges = 0
+            for i, p in enumerate(verts):
+                g_.add_vertex(p, fixed=(i == 0))
+            for e in edges:
+                g_.add_edge(*e)
+            runs[name] = secs(lambda: g_.optimize(12))[1], g_.poses
+        err = max(nps.sim3_log_norm(nps.sim3_mul(nps.sim3_inverse(p), q))
+                  for p, q in zip(runs["mesh"][1], gt))
+        gap = max(nps.sim3_log_norm(nps.sim3_mul(nps.sim3_inverse(p), q))
+                  for p, q in zip(runs["mesh"][1], runs["one device"][1]))
+        again = all(np.array_equal(p, q) for p, q in zip(
+            runs["mesh"][1], runs["mesh-again"][1]))
+        log(f"[mesh] PoseGraph(mesh).optimize(12), 1000 vertices, "
+            f"{len(edges)} edges (the sharded PCG step, fixed budget 250): "
+            f"max |log| to the ground truth {err:.4g} (bound 8e-3), to the "
+            f"one-device sparse solve {gap:.4g} (bound {PGO_GAP:g}); second "
+            f"pass bit-equal {again}; {runs['mesh'][0] * 1e3:.1f} ms per "
+            f"solve on the mesh ({runs['mesh-again'][0] * 1e3:.1f} the "
+            f"second time), {runs['one device'][0] * 1e3:.1f} ms on one "
+            f"device; {card}")
+        assert err < 8e-3 and gap < PGO_GAP and again, (err, gap, again)
+
+        # the sharded quick track, 64 lanes at 640x480
+        tracker, refs, quad, frames, inits, one = quick_lanes(torch,
+                                                             QUICK_LANES)
+        results = {}
+        for name, track, data in (
+                ("refs", sharded_quick_track(mesh, tracker),
+                 (refs, quad, inits)),
+                ("frames", sharded_quick_track_frames(mesh, tracker),
+                 (one, frames, inits))):
+            plain_track = (tracker.track_batch_pts if name == "refs"
+                           else tracker.track_batch_frames)
+            res, mesh_s = secs(lambda: track(*data))
+            res2, mesh2_s = secs(lambda: track(*data))
+            base, one_s = secs(lambda: plain_track(*data))
+            gap = float((res.ref_to_frame - base.ref_to_frame).abs().max())
+            flags = torch.equal(res.tracking_good, base.tracking_good)
+            again = (torch.equal(res.ref_to_frame, res2.ref_to_frame)
+                     and torch.equal(res.tracking_good, res2.tracking_good))
+            results[name] = (gap, flags, again)
+            log(f"[mesh] sharded quick track ({name}), {QUICK_LANES} lanes "
+                f"at 640x480 (level {tracker.level}), "
+                f"{int(res.tracking_good.sum())} good: flags equal to the "
+                f"unsharded batch {flags}, max |ref_to_frame difference| "
+                f"{gap:.3g} (bound {QUICK_BOUND:g}), second pass bit-equal "
+                f"{again}; {mesh_s * 1e3:.1f} ms per batch on the mesh "
+                f"({mesh2_s * 1e3:.1f} the second time, {res.n_syncs} host "
+                f"syncs), {one_s * 1e3:.1f} ms on one device "
+                f"({base.n_syncs} syncs); {card}")
+        for name, (gap, flags, again) in results.items():
+            assert flags and gap <= QUICK_BOUND and again, (name, gap)
+        torch.cuda.synchronize()
+        launches = scatter.LAUNCHES, scatter.ORDER_LAUNCHES
+    log(f"[mesh] segment_sum launches {launches[0]}, segment_order launches "
+        f"{launches[1]}, plain-version calls {plain[0]}")
+    assert min(launches) > 0 and plain[0] == 0, (launches, plain)
+    SEGMENT_LAUNCHES["mesh"], ORDER_LAUNCHES["mesh"] = launches
+    return launches
+
+
+PGO_RANK_TAG = "[pgo-rank] "
+
+
+def circle_payload(n=1000):
+    """[pgo-sparse]'s circle graph at n vertices as `PoseGraph`'s padded
+    payload (what the frontend ships for an SPMD PGO)."""
+    from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
+
+    verts, edges, _ = circle_graph(n)
+    pg = PoseGraph(device="cpu")
+    for i, p in enumerate(verts):
+        pg.add_vertex(p, fixed=(i == 0))
+    for e in edges:
+        pg.add_edge(*e)
+    return pg._padded_arrays()[1]
+
+
+def pgo_rank(rank, world, coord, chan, out) -> int:
+    """`chip_smoke.py --pgo-rank R W COORD CHAN OUT`: rank R of W (one card
+    each: NCCL by `pick_backend`'s rule) runs the SPMD CG PGO of
+    `circle_payload()`, broadcast from rank 0 over the host channel, for 12
+    GN iterations; every rank must end with the same poses; rank 0 saves
+    them to OUT. Prints its timing and counts behind PGO_RANK_TAG."""
+    from lsd_slam_tpu_torch.ops import scatter
+    from lsd_slam_tpu_torch.parallel.multihost import (
+        HostChannel, init_multihost, shutdown_multihost)
+    from lsd_slam_tpu_torch.parallel.multihost_engine import _spmd_pgo
+
+    mesh = init_multihost(f"127.0.0.1:{coord}", world, rank)
+    chan_ = HostChannel(rank, world, port=chan, timeout=120.0)
+    payload = chan_.broadcast(circle_payload() if rank == 0 else None)
+    scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+    t0 = time.perf_counter()
+    poses = _spmd_pgo(payload, 12, mesh)
+    secs = time.perf_counter() - t0
+    same = all(np.array_equal(p, poses) for p in chan_.allgather(poses))
+    if rank == 0:
+        np.save(out, poses)
+    chan_.barrier()
+    chan_.close()
+    shutdown_multihost()
+    log(PGO_RANK_TAG + json.dumps(dict(
+        rank=rank, backend=mesh.backend, device=str(mesh.main), secs=secs,
+        collectives=mesh.collectives, staged_bytes=mesh.staged_bytes,
+        segment_sum=scatter.LAUNCHES, segment_order=scatter.ORDER_LAUNCHES,
+        same_on_every_rank=same)))
+    return 0 if same else 1
+
+
+def multihost_nccl_phase(torch, card):
+    """Phase [multihost-nccl] (more than one card): one process per card
+    (NCCL) running `pgo_rank`, whose poses must equal, bit for bit, the
+    same SPMD PGO on the one-process mesh of one shard per card."""
+    import tempfile
+
+    from lsd_slam_tpu_torch.parallel import make_mesh
+    from lsd_slam_tpu_torch.parallel.multihost_engine import _spmd_pgo
+
+    n = torch.cuda.device_count()
+    coord, chan = free_ports(2)
+    out = os.path.join(tempfile.mkdtemp(prefix="lsd_pgo_"), "poses.npy")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--pgo-rank",
+         str(r), str(n), str(coord), str(chan), out], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+    done = []
+    try:
+        for p in procs:
+            done.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (o, e)) in enumerate(zip(procs, done)):
+        if p.returncode != 0:
+            raise RuntimeError(f"--pgo-rank {r} exit {p.returncode}:\n"
+                               f"{o[-3000:]}\n{e[-3000:]}")
+        log("[multihost-nccl] " + next(
+            ln for ln in o.splitlines() if ln.startswith("[multihost]")))
+        got = json.loads(o.splitlines()[-1][len(PGO_RANK_TAG):])
+        log("[multihost-nccl] " + json.dumps(got))
+        SEGMENT_LAUNCHES[f"multihost-nccl-rank{r}"] = got["segment_sum"]
+        ORDER_LAUNCHES[f"multihost-nccl-rank{r}"] = got["segment_order"]
+    mesh = make_mesh(n, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = _spmd_pgo(circle_payload(), 12, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    multi = np.load(out)
+    same = np.array_equal(one, multi)
+    log(f"[multihost-nccl] {n} ranks, one card each, against the one-process "
+        f"mesh {[str(d) for d in mesh.devices]} ({secs * 1e3:.1f} ms): "
+        f"poses bit-equal {same}, max |difference| "
+        f"{float(np.abs(one - multi).max()):g}; {card}")
+    assert same
+
+
+def free_ports(k):
+    """k ports the OS has free now (bound together, so they differ)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(k)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def multihost_phase(card, frames, calib, root, want_kfs, want_edges,
+                    want_traj, cli_fps, timeout=600):
+    """Phase [multihost]: the runner in two fresh processes started
+    together on the card, `chip_smoke.py --multihost-gates --counted-runner
+    files:... calib:... out:... multihost:R:2:P:Q` for R = 0, 1 (the
+    fan-out and SPMD PGO gates lowered as in
+    tests/multihost_engine_worker.py). Both must exit 0 (each is killed at
+    `timeout`), rank 1 print `multihost worker done`; rank 0's keyframe
+    ids and edge pairs equal [cli]'s in-process run's and its TUM rows lie
+    within 5e-3 of that trajectory; the frontend ran the SPMD PGO; the
+    engine's relocaliser fanned out (`reloc_check`: the run's candidate
+    search forms no batch at [cli]'s `initialization_phase_count`) and
+    picked what rank 0 alone picks; rank 0 launched regularize_fused,
+    both ranks the segment kernels, neither a plain version. Prints rank
+    0's SPMD PGO seconds and the host seconds inside collectives. Returns
+    rank 0's fused launches."""
+    coord, chan = free_ports(2)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    outs = [os.path.join(root, f"out_mh{r}") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--multihost-gates", "--counted-runner", f"files:{frames}",
+         f"calib:{calib}", f"out:{outs[r]}",
+         f"multihost:{r}:2:{coord}:{chan}"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    done = []
+    try:
+        for p in procs:
+            done.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (out, err)) in enumerate(zip(procs, done)):
+        if p.returncode != 0:
+            raise RuntimeError(f"multihost rank {r} exit {p.returncode}:\n"
+                               f"{out[-3000:]}\n{err[-3000:]}")
+    counts = []
+    for out, _ in done:
+        lines = out.splitlines()
+        assert lines[-1].startswith(COUNTS_TAG), out[-3000:]
+        counts.append(json.loads(lines[-1][len(COUNTS_TAG):]))
+        log("[multihost] " + next(ln for ln in lines
+                                  if ln.startswith("[multihost]")))
+    assert "multihost worker done" in done[1][0], done[1][0][-3000:]
+    r0, r1 = counts
+    done0 = [ln for ln in done[0][0].splitlines() if ln.startswith("done:")]
+    fps = done_fps(done0[0])
+    traj, kfs, edges, n_pts, _ = _runner_outputs(outs[0], CLI_FRAMES)
+    gap = (float(np.abs(traj - want_traj).max())
+           if traj.shape == want_traj.shape else float("inf"))
+    log(f"[multihost] rank 0: {fps:.3f} fps ({CLI_FRAMES} frames; [cli]'s "
+        f"hz:0 runner {cli_fps:.3f} fps), keyframes {kfs}, {len(edges)} "
+        f"edges, {n_pts} points; max |TUM row - [cli] in-process| {gap:.3g} "
+        f"(bound 5e-3); frontend fan-outs {r0['fanouts']}: "
+        f"{r0['run_fanouts']} in the run, the engine's relocaliser "
+        f"{r0['reloc_check']}, `fanout_check` {r0['fanout_check']} (bound "
+        f"{QUICK_BOUND:g}); SPMD PGO calls {r0['pgo_calls']}, collectives "
+        f"{r0['collectives']}, bytes staged through host memory "
+        f"{r0['staged_bytes']}; rank 1 served {r1['served']}, collectives "
+        f"{r1['collectives']}, staged bytes {r1['staged_bytes']}; {card}")
+    log(f"[multihost] host time: the run {CLI_FRAMES / fps:.3f} s at rank "
+        f"0's fps, rank 0's SPMD PGO {r0['pgo_secs']:.3f} s, inside "
+        f"collectives (staging copies, the device work they wait on, the "
+        f"wait for the other rank) {r0['collective_secs']:.3f} s on rank 0 "
+        f"and {r1['collective_secs']:.3f} s on rank 1")
+    log(f"[multihost] rank 0 launches: regularize_fused {r0['fused']}, "
+        f"segment_sum {r0['segment_sum']}, segment_order "
+        f"{r0['segment_order']}, plain {r0['plain']}; rank 1: "
+        f"regularize_fused {r1['fused']}, segment_sum {r1['segment_sum']}, "
+        f"segment_order {r1['segment_order']}, plain {r1['plain']}")
+    assert kfs == want_kfs, (kfs, want_kfs)
+    assert edges == want_edges, (edges, want_edges)
+    assert gap <= 5e-3, gap
+    assert r0["pgo_calls"] > 0, r0
+    reloc = r0["reloc_check"]
+    assert reloc["kf"] is not None and reloc["same"], reloc
+    assert reloc["fanouts"] > 0 and reloc["quick_syncs"] > 0, reloc
+    assert reloc["gap"] <= QUICK_BOUND, reloc
+    check = r0["fanout_check"]
+    assert check["flags_equal"] and check["gap"] <= QUICK_BOUND, check
+    assert r0["fused"] > 0 and r0["accumulators"] == 0, r0
+    for c in counts:
+        assert min(c["segment_sum"], c["segment_order"]) > 0, c
+        assert c["plain"] == 0 and c["segment_plain"] == 0, c
+    for r, c in enumerate(counts):
+        SEGMENT_LAUNCHES[f"multihost-rank{r}"] = c["segment_sum"]
+        ORDER_LAUNCHES[f"multihost-rank{r}"] = c["segment_order"]
+    return r0["fused"]
 
 
 def appearance_phase(torch, card):
@@ -2099,6 +2700,12 @@ def main() -> int:
     ap.add_argument("--counted-runner", nargs=argparse.REMAINDER,
                     metavar="ARG", help="run io.runner.main(ARG...) with "
                     "the kernel counts as the last line ([cli] uses it)")
+    ap.add_argument("--multihost-gates", action="store_true",
+                    help="with --counted-runner: lower the fan-out and SPMD "
+                    "PGO gates ([multihost] uses it)")
+    ap.add_argument("--pgo-rank", nargs=5, metavar=("R", "W", "COORD",
+                                                     "CHAN", "OUT"),
+                    help="one rank of [multihost-nccl]'s SPMD PGO")
     ap.add_argument("--warmup-run", choices=("with", "without"),
                     help="time a fresh engine's first frames with or "
                     "without warm-up ([warmup] uses it)")
@@ -2116,9 +2723,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     if args.counted_runner is not None:
-        return counted_runner(args.counted_runner)
+        return counted_runner(args.counted_runner, args.multihost_gates)
     if args.warmup_run:
         return warmup_run(args.warmup_run)
+    if args.pgo_rank:
+        r, w, coord, chan, out = args.pgo_rank
+        return pgo_rank(int(r), int(w), int(coord), int(chan), out)
     from lsd_slam_tpu_torch.ops import build
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.ops import scatter
@@ -2183,9 +2793,17 @@ def main() -> int:
 
     phase_done("build, kernels and scatter")
 
-    # ---- 13., 14., 16. sparse PGO, appearance index, warm-up ----
+    # ---- 13., 17., 14., 16. sparse PGO, the mesh, appearance, warm-up ----
     pgo_sparse_phase(torch, card)
     phase_done("pgo-sparse")
+    mesh_phase(torch, card)
+    phase_done("mesh")
+    if torch.cuda.device_count() > 1:
+        multihost_nccl_phase(torch, card)
+        phase_done("multihost-nccl")
+    else:
+        log("[multihost-nccl] skipped: one card (NCCL refuses two ranks on "
+            "one device)")
     appearance_phase(torch, card)
     phase_done("appearance")
     warm_fused = warmup_phase(card)
@@ -2346,7 +2964,9 @@ def main() -> int:
                  "scatter-add in propagate; no Pallas counterpart)",
         also_replaces=["lsd_slam_tpu/mapping/pose_graph.py:57-63",
                        "lsd_slam_tpu/mapping/sparse_pgo.py:69-93",
-                       "lsd_slam_tpu/mapping/appearance.py:93-105"],
+                       "lsd_slam_tpu/mapping/appearance.py:93-105",
+                       "lsd_slam_tpu/parallel/distributed.py:113-118",
+                       "lsd_slam_tpu/parallel/distributed.py:180-203"],
         shape="propagate 640x480, pass 2's (M, 4) call",
         sm_clock_mhz=sm_clock)
     common = dict(route="cuda",
@@ -2366,6 +2986,7 @@ def main() -> int:
              slam_production_launches=prod_fused,
              slam_threads_launches=threads_fused,
              cli_launches=cli_fused,
+             multihost_rank0_launches=cli_fused["multihost_rank0"],
              slam_fabmap_launches=fab_fused, warmup_launches=warm_fused,
              slam_busy_share=busy_share,
              slam_pipelined_busy_share=pipe_share,

@@ -5,6 +5,7 @@ Port of lsd_slam_tpu/io/runner.py (== main_on_images.cpp):
     python -m lsd_slam_tpu_torch.io.runner files:<dir> calib:<file>
         [hz:0] [out:<dir>] [vo] [dump] [checkpoint:<file>]
         [resume:<file>] [profile:<dir>] [pipeline:<lag>] [device:<dev>]
+        [multihost:<rank>:<world>[:<coord_port>[:<chan_port>]]]
 
 The argv grammar, mode selection, outputs and print lines are the JAX
 runner's. hz:0 is the deterministic sequential mode (README.md:139);
@@ -13,8 +14,11 @@ loop. `device:` (default the CUDA device; `device:cpu` runs on the CPU)
 is the port's own; without a CUDA device and without `device:` the runner
 stops. `profile:<dir>` synchronises the stage timers and writes a
 torch.profiler Chrome trace (`trace.json`) into the directory, where the
-JAX runner writes a jax.profiler trace. `multihost:` is not ported
-(ROADMAP Queue 1 item 8) and raises NotImplementedError.
+JAX runner writes a jax.profiler trace. `multihost:` runs the engine
+across processes (`bringup_multihost`): rank 0 runs the dataset with its
+candidate search and PGO fanned out, ranks >= 1 serve and print
+`multihost worker done`; `device:` applies to every rank. A resumed
+system gets no frontend, as in the JAX runner.
 """
 
 from __future__ import annotations
@@ -47,10 +51,10 @@ def parse_args(argv):
             # device drains, and a torch.profiler trace lands in the dir
             args["profile"] = a[8:]
         elif a.startswith("multihost:"):
-            raise NotImplementedError(
-                "multihost: (the engine fanned out across processes) is not "
-                "ported yet: ROADMAP Queue 1 item 8 (multi-device and "
-                "multi-process)")
+            # multihost:<rank>:<world>[:<coord_port>[:<chan_port>]] — rank
+            # 0 runs the dataset with the engine's candidate search and
+            # PGO fanned out across processes; ranks >= 1 serve
+            args["multihost"] = a[10:]
         elif a.startswith("pipeline:"):
             args["pipeline"] = int(a[9:])
         elif a.startswith("device:"):
@@ -60,6 +64,38 @@ def parse_args(argv):
         elif a == "dump":
             args["dump"] = True
     return args
+
+
+def parse_multihost(spec: str):
+    """'<rank>:<world>[:<coord_port>[:<chan_port>]]' -> (rank, world,
+    coordinator port, channel port); the ports default to 47211 and the
+    coordinator's + 1, as in the JAX runner."""
+    parts = spec.split(":")
+    rank, world = int(parts[0]), int(parts[1])
+    coord_port = int(parts[2]) if len(parts) > 2 else 47211
+    chan_port = int(parts[3]) if len(parts) > 3 else coord_port + 1
+    return rank, world, coord_port, chan_port
+
+
+def bringup_multihost(spec: str, cam, cfg, device=None,
+                      local_device_count=None):
+    """Join the process group and the host channel for `spec` (see
+    `parse_multihost`) on `device`. Rank 0 returns a MultihostFrontend to
+    pass into SlamSystem; the other ranks serve until the frontend stops
+    them, then return None (the caller should exit)."""
+    from lsd_slam_tpu_torch.parallel import multihost_engine
+    from lsd_slam_tpu_torch.parallel.multihost import (HostChannel,
+                                                       init_multihost)
+
+    rank, world, coord_port, chan_port = parse_multihost(spec)
+    mesh = init_multihost(f"127.0.0.1:{coord_port}", world, rank,
+                          local_device_count=local_device_count,
+                          device=device)
+    channel = HostChannel(rank, world, port=chan_port, timeout=120.0)
+    if rank == 0:
+        return multihost_engine.MultihostFrontend(channel, cam, cfg, mesh)
+    multihost_engine.serve(channel, mesh)
+    return None
 
 
 def run_device(args):
@@ -99,6 +135,12 @@ def main(argv=None):
     if args.get("pipeline"):
         cfg = cfg.replace(system=dataclasses.replace(
             cfg.system, pipeline_lag=args["pipeline"]))
+    multihost = None
+    if args.get("multihost"):
+        multihost = bringup_multihost(args["multihost"], cam, cfg, device)
+        if multihost is None:
+            print("multihost worker done", flush=True)
+            return
     if args["resume"]:
         from lsd_slam_tpu_torch.io.checkpoint import load_system
         system = load_system(args["resume"], cfg,
@@ -107,7 +149,7 @@ def main(argv=None):
               f"{len(system.keyframes)} keyframes", flush=True)
     else:
         system = SlamSystem(cam, cfg, enable_slam=not args["vo"],
-                            device=device)
+                            device=device, multihost=multihost)
     out = FileOutput3DWrapper(args["out"], cam=cam)
     system.set_visualization(out)
 

@@ -58,36 +58,55 @@ def _matvec(blocks, efrom, eto, ends, v):
 
 
 def pcg_solve(poses, fixed_mask, efrom, eto, meas_inv, info, huber_delta,
-              lam: float, n_vertices: int, max_iters: int, tol: float = 1e-7):
+              lam: float, n_vertices: int, max_iters: int, tol: float = 1e-7,
+              shards=None):
     """One damped-GN right-hand side solved by block-Jacobi PCG.
 
+    `shards` is the mesh's cross-shard hook (parallel/distributed.py):
+    `shards.split(poses, efrom, ...)` cuts the edges into per-device parts
+    and `shards.reduce(partials)` sums the parts' g, D, chi2 and matvec
+    partials in shard order (the psum) onto `poses`' device, where the CG
+    state lives. Without it the edges are one part and nothing is reduced.
     Returns (delta (N, 7), chi2 sum, CG iterations used, relative residual)
     as device tensors."""
-    # both edge ends in one order, built once per solve
-    ends = sort_index(torch.cat([efrom, eto]), n_vertices)
-    blocks, AtWr, chi2 = edge_blocks(poses, efrom, eto, meas_inv, info,
-                                     huber_delta)
+    if shards is None:
+        parts = [(poses, efrom, eto, meas_inv, info, huber_delta)]
+        reduce = _only
+    else:
+        parts = shards.split(poses, efrom, eto, meas_inv, info, huber_delta)
+        reduce = shards.reduce
+    dev = poses.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     free = ~fixed_mask[:, None]                                  # (N, 1)
-    zero = torch.zeros((), dtype=torch.float32, device=poses.device)
-
-    g = torch.zeros((n_vertices, 7), dtype=torch.float32,
-                    device=poses.device)
-    ordered_index_add(g, ends, torch.cat([-AtWr, AtWr]))
-    b = torch.where(free, -g, zero)
-
-    # diagonal blocks + LM damping (the dense path's rule)
-    D = torch.zeros((n_vertices, 7, 7), dtype=torch.float32,
-                    device=poses.device)
-    ordered_index_add(D, ends, torch.cat([blocks, blocks]))
+    edges, g_parts, d_parts, chi2_parts = [], [], [], []
+    for p_poses, p_from, p_to, *rest in parts:
+        # both edge ends in one order, built once per solve
+        ends = sort_index(torch.cat([p_from, p_to]), n_vertices)
+        blocks, AtWr, chi2 = edge_blocks(p_poses, p_from, p_to, *rest)
+        edges.append((blocks, p_from, p_to, ends))
+        g_parts.append(ordered_index_add(
+            torch.zeros((n_vertices, 7), dtype=torch.float32,
+                        device=p_poses.device), ends,
+            torch.cat([-AtWr, AtWr])))
+        # diagonal blocks (+ LM damping below, the dense path's rule)
+        d_parts.append(ordered_index_add(
+            torch.zeros((n_vertices, 7, 7), dtype=torch.float32,
+                        device=p_poses.device), ends,
+            torch.cat([blocks, blocks])))
+        chi2_parts.append(torch.sum(chi2))
+    b = torch.where(free, -reduce(g_parts), zero)
+    D = reduce(d_parts)
     damp = lam * (torch.abs(torch.diagonal(D, dim1=1, dim2=2)) + 1.0)
     D = D + torch.diag_embed(damp)
-    eye = torch.eye(7, dtype=torch.float32, device=poses.device).expand_as(D)
+    eye = torch.eye(7, dtype=torch.float32, device=dev).expand_as(D)
     D = torch.where(fixed_mask[:, None, None], eye, D)
     Dinv = torch.linalg.inv(D + 1e-9 * eye)
 
     def matvec(v):
         v = torch.where(free, v, zero)
-        hv = _matvec(blocks, efrom, eto, ends, v) + damp * v
+        hv = reduce([_matvec(blocks, p_from, p_to, ends,
+                             v.to(blocks.device))
+                     for blocks, p_from, p_to, ends in edges]) + damp * v
         return torch.where(free, hv, zero)
 
     def precond(r):
@@ -98,7 +117,7 @@ def pcg_solve(poses, fixed_mask, efrom, eto, meas_inv, info, huber_delta,
     p = precond(r)
     rz = torch.sum(r * p)
     bnorm = torch.sqrt(torch.sum(b * b)) + 1e-30
-    iters = torch.zeros((), dtype=torch.int32, device=poses.device)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_iters):
         active = torch.sqrt(torch.sum(r * r)) / bnorm > tol
         hp = matvec(p)
@@ -113,7 +132,12 @@ def pcg_solve(poses, fixed_mask, efrom, eto, meas_inv, info, huber_delta,
         rz = torch.where(active, rz_new, rz)
         iters = iters + active.to(torch.int32)
     rel = torch.sqrt(torch.sum(r * r)) / bnorm
-    return x, torch.sum(chi2), iters, rel
+    return x, reduce(chi2_parts), iters, rel
+
+
+def _only(partials):
+    """The one-part reduction: the part itself."""
+    return partials[0]
 
 
 def apply_update(poses, delta):

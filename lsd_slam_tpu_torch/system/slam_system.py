@@ -144,7 +144,8 @@ def frame_step(tracker: SE3Tracker, cam: Camera, cfg: LSDConfig, state, ref,
 
 class SlamSystem:
     def __init__(self, cam: Camera, cfg: LSDConfig = LSDConfig(),
-                 enable_slam: bool = True, seed: int = 0, device=None):
+                 enable_slam: bool = True, seed: int = 0, device=None,
+                 multihost=None):
         if cam.width != cfg.width or cam.height != cfg.height:
             cfg = cfg.replace(width=cam.width, height=cam.height)
         self.device = resolve_device(device)
@@ -152,6 +153,10 @@ class SlamSystem:
         self.cfg = cfg
         self.enable_slam = enable_slam
         self.seed = seed
+        # multi-process frontend (parallel/multihost_engine.
+        # MultihostFrontend, rank 0 only): keyframe-partitioned candidate
+        # search and SPMD PGO across processes; None on one process
+        self.multihost = multihost
 
         self.tracker = SE3Tracker(cam, cfg.tracker,
                                   sigma2=cfg.mapping.camera_pixel_noise2,
@@ -798,6 +803,11 @@ class SlamSystem:
         finally:
             self._stop_workers()
         self.raise_worker_error()
+        if self.multihost is not None:
+            # releases the worker ranks; after a failure they are left to
+            # fail on the closed channel instead
+            self.multihost.stop()
+            self.multihost = None
 
     # ------------------------------------------------------------- export
 

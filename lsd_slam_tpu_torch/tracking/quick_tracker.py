@@ -50,18 +50,27 @@ class QuickTrackResult:
             self.residual[i], self.n_syncs)
 
 
+POINT_FIELDS = ("idx", "ival", "gx", "gy", "idp", "ivr", "valid", "n_valid")
+
+
 def stack_points(pts_list) -> PointSet:
     """Stack level-l PointSets of equal budget into one with (B, N) fields
     (n_valid (B,))."""
     return PointSet(*(torch.stack([getattr(p, f) for p in pts_list])
-                      for f in ("idx", "ival", "gx", "gy", "idp", "ivr",
-                                "valid", "n_valid")))
+                      for f in POINT_FIELDS))
 
 
 def zeros_like_points(p: PointSet) -> PointSet:
-    return PointSet(*(torch.zeros_like(getattr(p, f))
-                      for f in ("idx", "ival", "gx", "gy", "idp", "ivr",
-                                "valid", "n_valid")))
+    return PointSet(*(torch.zeros_like(getattr(p, f)) for f in POINT_FIELDS))
+
+
+def slice_points(p: PointSet, start: int, stop: int) -> PointSet:
+    """Lanes [start, stop) of stacked PointSets."""
+    return PointSet(*(getattr(p, f)[start:stop] for f in POINT_FIELDS))
+
+
+def points_to(p: PointSet, device) -> PointSet:
+    return PointSet(*(getattr(p, f).to(device) for f in POINT_FIELDS))
 
 
 def _overlap_impl(cam, cfg, level, pts, frame_quad, pose):

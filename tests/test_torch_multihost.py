@@ -1,0 +1,234 @@
+"""The port's multi-process runtime (`lsd_slam_tpu_torch/parallel/
+multihost.py`, `multihost_engine.py`, `io.runner`'s `multihost:`) on the
+CPU, in child processes over gloo, against the JAX package.
+
+Bounds:
+  * HostChannel across 3 processes: every object arrives as sent;
+  * `multihost_pgo_optimize` in 2 processes of 2 CPU shards each, on
+    tests/multihost_worker.make_graph(), against JAX's
+    `multihost_pgo_optimize(HostChannel(0, 1), payload, 12)` in this
+    process (conftest's 8 devices): every pose within 2e-3 log-norm, and
+    the error to the ground truth below 0.25x the initial error
+    (tests/test_multihost.py's bounds);
+  * the engine in 2 processes (rank 0 the frontend, rank 1 serving; the
+    gates lowered as tests/multihost_engine_worker.py lowers them) on the
+    JAX-rendered frames of that file's `make_sequence()`, against the JAX
+    engine's `run_engine(None)` in a fresh process: the same keyframe and
+    edge counts, positions within 5e-3 (tests/test_multihost.py:126-135);
+    the frontend ran the SPMD PGO, and the keyframe graph's quick-track
+    batches over every keyframe, fanned out across the ranks, give rank 0's
+    own batches (good flags equal, ref_to_frame within 1e-5);
+  * the runner CLI pair (`multihost:0:2` / `multihost:1:2`, `device:cpu`,
+    the default gates) on a 160x128 folder: both ranks exit 0, rank 1
+    prints `multihost worker done`, and rank 0's TUM rows equal a plain
+    hz:0 run's to 1e-6 (the file's 6 decimals).
+Ports come from the OS (`free_ports`). Every child runs under a timeout
+(CHILD_TIMEOUT) and is killed when it expires.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from lsd_slam_tpu.lie import np_sim3 as nps
+from lsd_slam_tpu.parallel.multihost import HostChannel as JaxHostChannel
+from lsd_slam_tpu.parallel.multihost import \
+    multihost_pgo_optimize as jax_multihost_pgo_optimize
+
+from lsd_slam_tpu_torch.utils import synth
+from lsd_slam_tpu_torch.utils.image_io import write_png
+
+from tests.multihost_worker import make_graph
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(REPO, "tests", "_torch_multihost_worker.py")
+CHILD_TIMEOUT = 240.0
+
+
+def free_ports(k):
+    """k ports the OS has free now (bound together, so they differ)."""
+    socks = [socket.socket() for _ in range(k)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _start(args, **env):
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", **env)
+    env.pop("XLA_FLAGS", None)
+    return subprocess.Popen([sys.executable, *args], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(procs, timeout=CHILD_TIMEOUT):
+    """Wait for every child (killing all of them once `timeout` passes);
+    returns their outputs after checking each exited 0."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return outs
+
+
+def test_host_channel_three_processes():
+    (port,) = free_ports(1)
+    outs = _finish([_start([WORKER, "channel", str(r), "3", str(port)])
+                    for r in range(3)], timeout=120.0)
+    for r, out in enumerate(outs):
+        assert f"rank {r} channel ok" in out, out
+
+
+def test_two_process_pgo_matches_jax(tmp_path):
+    g = make_graph()
+    payload = {k: v for k, v in g.items() if k not in ("n_real_edges", "gt")}
+    payload_path = str(tmp_path / "payload.npz")
+    np.savez(payload_path, **payload)
+    out_path = str(tmp_path / "multi.npy")
+    coord, chan = free_ports(2)
+    outs = _finish([_start([WORKER, "pgo", str(r), "2", str(coord),
+                            str(chan), payload_path, out_path])
+                    for r in range(2)])
+    assert all("[multihost]" in o and "backend gloo" in o for o in outs)
+
+    ref = jax_multihost_pgo_optimize(JaxHostChannel(0, 1), payload, 12)
+    multi = np.load(out_path)
+    assert multi.shape == ref.shape
+    for i in range(multi.shape[0]):
+        d = nps.sim3_log_norm(nps.sim3_mul(nps.sim3_inverse(ref[i]),
+                                           multi[i]))
+        assert d < 2e-3, (i, d)
+    gt, init = g["gt"], payload["poses"].astype(np.float64)
+
+    def err(poses):
+        return max(nps.sim3_log_norm(
+            nps.sim3_mul(nps.sim3_inverse(gt[i]), poses[i]))
+            for i in range(gt.shape[0]))
+    assert err(multi) < 0.25 * err(init), (err(multi), err(init))
+
+
+def test_two_process_engine_matches_jax(tmp_path):
+    frames = str(tmp_path / "frames.npz")
+    ref_path = str(tmp_path / "jax.npz")
+    out_path = str(tmp_path / "port.npz")
+    jax_proc = _start([WORKER, "jax-engine", frames, ref_path])
+    try:
+        # the port's ranks start once the JAX process has written the frames
+        for line in jax_proc.stdout:
+            if line.startswith("frames written"):
+                break
+        else:
+            raise AssertionError("the JAX process wrote no frames")
+        coord, chan = free_ports(2)
+        ranks = [_start([WORKER, "engine", str(r), "2", str(coord),
+                         str(chan), frames, out_path]) for r in range(2)]
+    except BaseException:
+        jax_proc.kill()
+        raise
+    outs = _finish([jax_proc] + ranks)
+    assert "rank 1 done" in outs[2], outs[2][-3000:]
+
+    want, got = np.load(ref_path), np.load(out_path)
+    assert int(got["n_kf"]) == int(want["n_kf"])
+    assert int(got["n_edges"]) == int(want["n_edges"])
+    assert int(got["pgo_calls"]) > 0
+    # the engine's own fan-outs: the run's candidate search forms no batch
+    # of two (three keyframes); the relocaliser's after the manual loss
+    # fan out, bump quick_syncs and choose what rank 0 alone chooses
+    calls, hits, fanouts, syncs, reloc_gap, same_choice = got["reloc"]
+    assert hits > 0 and fanouts > 0 and syncs > 0, got["reloc"]
+    assert int(got["fanouts"]) == int(got["run_fanouts"]) + int(fanouts)
+    assert same_choice == 1.0 and reloc_gap <= 1e-5, got["reloc"]
+    # a fanned-out batch equals the same batch on rank 0 alone
+    gap, same_flags = got["fanout_gap"]
+    assert same_flags == 1.0 and gap <= 1e-5, got["fanout_gap"]
+    assert got["traj"].shape == want["traj"].shape
+    pos_diff = np.linalg.norm(got["traj"][:, 4:7] - want["traj"][:, 4:7],
+                              axis=1).max()
+    assert pos_diff < 5e-3, pos_diff
+
+
+W, H, N_CLI = 160, 128, 20
+RUNNER_THREADS = 2
+
+
+def test_runner_pair_matches_hz0(tmp_path):
+    files = tmp_path / "frames"
+    files.mkdir()
+    _, imgs, _, _ = synth.make_sequence(n_frames=N_CLI, width=W, height=H,
+                                        device="cpu")
+    for i, img in enumerate(imgs.numpy()):
+        write_png(str(files / f"{i:05d}.png"),
+                  np.clip(img, 0, 255).astype(np.uint8))
+    calib = tmp_path / "calib.cfg"
+    calib.write_text(f"0.7 {0.7 * W / H} {((W - 1) / 2 + 0.5) / W} "
+                     f"{((H - 1) / 2 + 0.5) / H} 0\n{W} {H}\nnone\n{W} {H}\n")
+    coord, chan = free_ports(2)
+    common = ["-m", "lsd_slam_tpu_torch.io.runner", f"files:{files}",
+              f"calib:{calib}", "device:cpu"]
+    # the same thread count in both engines, so the same rounding
+    threads = dict(OMP_NUM_THREADS=str(RUNNER_THREADS))
+    procs = [_start(common + [f"out:{tmp_path / f'out{r}'}",
+                              f"multihost:{r}:2:{coord}:{chan}"], **threads)
+             for r in range(2)]
+    procs.append(_start(common + [f"out:{tmp_path / 'plain'}"], **threads))
+    outs = _finish(procs)
+    assert "multihost worker done" in outs[1], outs[1][-3000:]
+    assert "done:" in outs[0] and "backend gloo" in outs[0], outs[0][-3000:]
+    rows = np.loadtxt(tmp_path / "out0" / "estimated_poses.txt")
+    plain = np.loadtxt(tmp_path / "plain" / "estimated_poses.txt")
+    assert rows.shape == plain.shape == (N_CLI, 8)
+    assert np.abs(rows - plain).max() <= 1e-6
+
+
+def test_edge_sharded_is_rank_major():
+    """Global shard r * L + j is rank r's local shard j (JAX's
+    `jax.devices()` order); `replicated` is the rank's whole copy."""
+    import torch
+
+    from lsd_slam_tpu_torch.parallel.distributed import Mesh
+    from lsd_slam_tpu_torch.parallel.multihost import (edge_sharded,
+                                                       replicated)
+
+    x = np.arange(16).reshape(8, 2)
+    for rank in range(2):
+        mesh = Mesh(["cpu", "cpu"], rank=rank, world=2)
+        assert mesh.size == 4
+        shards = edge_sharded(mesh, x)
+        assert [s.tolist() for s in shards] == [
+            x[2 * (2 * rank + j):2 * (2 * rank + j) + 2].tolist()
+            for j in range(2)]
+        assert torch.equal(replicated(mesh, x), torch.as_tensor(x))
+    with pytest.raises(ValueError, match="pad first"):
+        edge_sharded(Mesh(["cpu"] * 3), x)
+
+
+@pytest.mark.parametrize("device,cards,ranks,want", [
+    ("cpu", 0, 2, "gloo"), ("cuda", 1, 2, "gloo"), ("cuda", 4, 4, "nccl"),
+    ("cuda", 4, 2, "nccl"), ("cuda", 2, 3, "gloo")])
+def test_backend_rule(monkeypatch, device, cards, ranks, want):
+    """NCCL when every rank has a card of its own; gloo on the CPU and
+    when ranks share a card (the rule reads the card count, it never tries
+    a backend and catches its failure)."""
+    import torch
+
+    from lsd_slam_tpu_torch.parallel.multihost import pick_backend
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    backend, reason = pick_backend(torch.device(device), ranks)
+    assert backend == want and reason

@@ -47,7 +47,8 @@ PRODUCT_MODULES = ("io.runner", "io.dataset", "io.output", "io.checkpoint",
                    "utils.image_io", "utils.debug_viz")
 # the order-fixed scatter-sum and the modules built on it, and warm-up
 BACKEND_MODULES = ("ops.scatter", "mapping.sparse_pgo", "mapping.appearance",
-                   "system.warmup")
+                   "system.warmup", "parallel.distributed",
+                   "parallel.multihost", "parallel.multihost_engine")
 
 _IMPORT_RUNNER = r"""
 import sys
@@ -68,6 +69,37 @@ def test_importing_the_port_loads_no_jax():
     swept = out.stdout.split("SWEPT", 1)[1]
     for name in PRODUCT_MODULES + BACKEND_MODULES:
         assert f"'lsd_slam_tpu_torch.{name}'" in swept, name
+
+
+_IMPORT_PARALLEL = r"""
+import socket
+opened = []
+class Counted(socket.socket):
+    def __init__(self, *a, **k):
+        opened.append(a)
+        super().__init__(*a, **k)
+socket.socket = Counted
+import torch.distributed as dist
+import lsd_slam_tpu_torch, lsd_slam_tpu_torch.parallel
+import lsd_slam_tpu_torch.parallel.multihost
+import lsd_slam_tpu_torch.parallel.multihost_engine
+import lsd_slam_tpu_torch.io.runner
+print("GROUP", dist.is_available() and dist.is_initialized())
+print("SOCKETS", len(opened))
+"""
+
+
+def test_importing_the_port_starts_no_process_group():
+    """Importing the port and its multi-process modules starts no process
+    group and opens no socket: `init_multihost` and `HostChannel` do, when
+    called."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PARALLEL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "GROUP False" in out.stdout, out.stdout
+    assert "SOCKETS 0" in out.stdout, out.stdout
 
 
 def test_runner_and_dataset_load_no_pillow():
@@ -198,16 +230,20 @@ def test_slam_system_runs_where_asked():
     dict(argv=["files:/d", "calib:/c.cfg", "multihost:0:2"]),
 ])
 def test_unported_modes_raise(kw):
-    """The modes that raised before they were ported: the runner's
-    `multihost:` still raises, naming its ROADMAP item; the appearance
-    index (in SlamSystem, and in the keyframe graph of a VO engine) now
-    builds, and a pose graph above the dense threshold now takes the
-    sparse solver and returns."""
+    """The modes that raised before they were ported, none of which raises
+    now: the runner parses `multihost:` into rank, world and ports (the
+    JAX runner's defaults); the appearance index (in SlamSystem, and in the
+    keyframe graph of a VO engine) builds, and a pose graph above the
+    dense threshold takes the sparse solver and returns."""
     from lsd_slam_tpu_torch.mapping.appearance import AppearanceIndex
     if "argv" in kw:
         from lsd_slam_tpu_torch.io import runner
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runner.main(kw["argv"])
+        args = runner.parse_args(kw["argv"])
+        assert args["multihost"] == "0:2"
+        assert runner.parse_multihost(args["multihost"]) == (0, 2, 47211,
+                                                             47212)
+        assert runner.parse_multihost("1:4:5000:6000") == (1, 4, 5000, 6000)
+        assert runner.parse_multihost("1:2:5000") == (1, 2, 5000, 5001)
     elif "pgo_vertices" in kw:
         pg = PoseGraph(device="cpu")
         for _ in range(kw["pgo_vertices"]):

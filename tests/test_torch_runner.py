@@ -150,8 +150,16 @@ def test_parse_args_matches_jax(argv):
 
 
 def test_multihost_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        runner.parse_args(["files:/d", "multihost:0:2"])
+    """`multihost:` raised until the multi-process slice was ported (the
+    name is kept); it now parses as the JAX runner parses it, spec and
+    ports alike."""
+    for spec in ("0:2", "1:2:5000", "1:4:5000:6000"):
+        argv = ["files:/d", f"multihost:{spec}"]
+        got = runner.parse_args(argv)
+        assert got.pop("device") is None
+        assert got == jax_runner.parse_args(argv)
+        assert (runner.parse_multihost(spec)
+                == jax_runner._parse_multihost(spec))
 
 
 def test_device_defaults_to_cuda(monkeypatch):
