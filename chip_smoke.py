@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (13, 17, 14 and 16 run right after 3, 15 after 10, 18 inside 12);
-any failure
+Phases (13, 17, 14 and 16 run right after 3, 19 after 4, 15 after 10,
+18 inside 12); any failure
 raises, so the script exits non-zero and prints no ok line:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every CUDA kernel of the port, from the sources in the
@@ -195,6 +195,25 @@ raises, so the script exits non-zero and prints no ok line:
                SPMD PGO; rank 0 launches regularize_fused, both ranks the
                segment kernels, neither a plain version; the backend each
                rank logged, the pair's fps beside [cli]'s hz:0 fps.
+ 19. lm      — the trackers' LM level kernel `lm_level` against its plain
+               version (`tracking.lm.level_plain`) on the card: the four
+               levels of [vo]'s last tracked frame, on the inputs the main
+               path gave the kernel (B = 1), and the quick schedule over 64
+               lanes on [vo]'s level-4 inputs from disturbed inits, both
+               batch directions; the bounds of tests/test_torch_lm.py (pose
+               2e-5, error 1e-4 relative, affine 1e-3, flags and trial and
+               accept counts equal) hold on every level and lane, and a
+               second launch gives the same bits; on [mesh]'s 64 lanes
+               (a point set or layout of their own per lane) the same
+               bounds against the plain loop on the CPU, on every lane
+               its f64-summing and reordered runs agree with it
+               (`mesh_witness`);
+               CUDA-event ms of kernel and plain loop per level and batch,
+               beside the byte bound of the passes the inputs needed. Every
+               card path
+               ([vo], the SLAM phases, [cli], [multihost], [warmup],
+               [mesh]) launches `lm_level` and calls no plain LM loop, and
+               [vo] and the SLAM phases pull no SE(3) or quick LM flag.
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -226,6 +245,14 @@ its kernel counts as the last line (what [cli] runs for each runner call);
 times a fresh engine's first calls with or without warm-up first and
 prints them as the last line (what [warmup] runs in each process).
 
+    python3 chip_smoke.py --lm-turns
+
+runs only the build and [vo]'s, [slam]'s and [slam-pipelined]'s sequences
+with the LM loops on the kernel and on the plain loop in turns (kernel,
+plain, plain, kernel): fps, frame p50 / p95, the track stage, syncs per
+frame; the plain route stands for the earlier host loop (a flag pull
+per trial).
+
     python3 chip_smoke.py --pipeline-turns
 
 runs only the build and `[slam-pipelined]`'s sequence at pipeline_lag 0
@@ -247,6 +274,7 @@ import functools
 import hashlib
 import itertools
 import json
+import math
 import os
 import statistics
 import struct
@@ -305,6 +333,18 @@ BIT_EQUAL_RUNS = ("slam", "slam-pipelined")
 # step) in each path's run (counts zeroed just before)
 SEGMENT_LAUNCHES = {}
 ORDER_LAUNCHES = {}
+# launches of the trackers' LM level kernel (`lm_level`) in each path's run
+LM_LAUNCHES = {}
+# [lm], the kernel against its plain version on the card: the bounds of
+# tests/test_torch_lm.py (pose, the level's error relative, the affine
+# pair; flags and trial and accept counts equal)
+LM_POSE_ATOL, LM_ERR_RTOL, LM_AFF_ATOL = 2e-5, 1e-4, 1e-3
+# bytes one LM pass reads per point: the int64 index, ival, idp, ivr, the
+# valid byte, and one 48-byte quad row; and its arithmetic, counted from
+# csrc/lm_track.cu (warp, bilinear sample, residual and moments, weight,
+# Jacobian, 27 products into A and g; f32 ops and the 33 f64 adds)
+LM_BYTES_PER_POINT = 8 + 4 * 3 + 1 + 48
+LM_OPS_PER_POINT = 175 + 33
 # ... and the bound of the card's ATE (raw and after PGO) as a multiple of
 # the reference's: the same runs reach 1.05x on the bench, 1.16x on the loop
 SLAM_ATE_RATIO = 1.5
@@ -396,24 +436,29 @@ def random_state(torch, rng, h, w):
 
 @contextlib.contextmanager
 def counted_plain(stencil):
-    """Count the calls of the stencil's plain versions while inside; yields
-    a one-element list holding the count."""
-    calls = [0]
-    plains = {name: getattr(stencil, name) for name in (
-        "regularize_plain", "regularize_accumulators_plain")}
+    """Count the calls of the stencil's plain versions and of the LM
+    loop's (`tracking.lm.level_plain`) while inside; yields [all of them,
+    the LM loop's]."""
+    from lsd_slam_tpu_torch.tracking import lm
 
-    def counted(fn):
+    calls = [0, 0]
+    plains = {(stencil, name): getattr(stencil, name) for name in (
+        "regularize_plain", "regularize_accumulators_plain")}
+    plains[(lm, "level_plain")] = lm.level_plain
+
+    def counted(fn, of_lm):
         def call(*a, **k):
             calls[0] += 1
+            calls[1] += of_lm
             return fn(*a, **k)
         return call
-    for name, fn in plains.items():
-        setattr(stencil, name, counted(fn))
+    for (mod, name), fn in plains.items():
+        setattr(mod, name, counted(fn, mod is lm))
     try:
         yield calls
     finally:
-        for name, fn in plains.items():
-            setattr(stencil, name, fn)
+        for (mod, name), fn in plains.items():
+            setattr(mod, name, fn)
 
 
 def max_err_of(a, b, err):
@@ -750,13 +795,25 @@ def log_run(tag, run, n, fused, acc, plain):
     return st
 
 
+def assert_lm_on_path(tag, st, n_tracked):
+    """The LM loops of a card run went through the kernel: the four levels
+    of every tracked frame (frame 0 is the initialisation) launched
+    `lm_level`, and neither the SE(3) nor the quick tracker pulled a trial
+    flag."""
+    log(f"[{tag}] lm_level launches {LM_LAUNCHES[tag]} over {n_tracked} "
+        f"tracked frames; LM trial flags pulled: SE3 "
+        f"{st.get('lm_syncs', 0):.0f}, quick {st.get('quick_syncs', 0):.0f}")
+    assert LM_LAUNCHES[tag] >= 4 * n_tracked, (tag, LM_LAUNCHES[tag])
+    assert st.get("lm_syncs", 0) == 0 and st.get("quick_syncs", 0) == 0, st
+
+
 def slam_phase(torch, stencil, counted_plain, tag, trace):
     """Phase 5 ("slam"), 6 ("slam-loop") or 8 ("slam-pipelined"): the run
     of SLAM_RUNS[tag] against its stored reference, then, if `trace`, a
     second pass under torch.profiler. Returns (fused launches on the path,
     the final state's planes for the kernel check, the busy share or
     None)."""
-    from lsd_slam_tpu_torch.ops import scatter
+    from lsd_slam_tpu_torch.ops import lm_track, scatter
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
 
     ref_file, traj_bound, rot_bound = SLAM_RUNS[tag]
@@ -766,10 +823,12 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     with counted_plain() as plain_calls:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+        lm_track.LAUNCHES = 0
         run = run_slam(torch, ref, sync_each=sync_each)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
         ORDER_LAUNCHES[tag] = scatter.ORDER_LAUNCHES
+        LM_LAUNCHES[tag] = lm_track.LAUNCHES
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     st = sys_.stats.snapshot()
@@ -804,7 +863,8 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     log_run(tag, run, n, fused, acc, plain_calls[0])
     index = sys_.backend.graph.appearance
     log(f"[{tag}] segment_sum launches {SEGMENT_LAUNCHES[tag]}, "
-        f"segment_order launches {ORDER_LAUNCHES[tag]}"
+        f"segment_order launches {ORDER_LAUNCHES[tag]}, lm_level launches "
+        f"{LM_LAUNCHES[tag]} (plain LM loop calls {plain_calls[1]})"
         + ("" if index is None else
            f"; appearance index holds {len(index)} keyframes, answered "
            f"{index.n_queries} queries of the constraint search with "
@@ -831,6 +891,8 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
         fused, acc, plain_calls)
     assert SEGMENT_LAUNCHES[tag] > 0, "no segment_sum launch on the path"
     assert ORDER_LAUNCHES[tag] > 0, "no segment_order launch on the path"
+    assert_lm_on_path(tag, sys_.stats.snapshot(),
+                      len(sys_.all_frame_poses) - 1)
     share = None
     if trace:
         # the profiled pass runs the scenario again: it must build the same
@@ -870,15 +932,17 @@ def threaded_phase(torch, stencil, counted_plain, tag):
     ref = load_ref(ref_file)
     ref["keyframe_config"] = dict(ref["keyframe_config"], **keyframe)
     n = ref["n_frames"]
-    from lsd_slam_tpu_torch.ops import scatter
+    from lsd_slam_tpu_torch.ops import lm_track, scatter
 
     with counted_plain() as plain_calls:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+        lm_track.LAUNCHES = 0
         run = run_slam(torch, ref, sequential=False, sync_each=False)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
         ORDER_LAUNCHES[tag] = scatter.ORDER_LAUNCHES
+        LM_LAUNCHES[tag] = lm_track.LAUNCHES
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     n_edges = sys_.backend.graph.pose_graph.n_edges
@@ -917,6 +981,7 @@ def threaded_phase(torch, stencil, counted_plain, tag):
         "finalize"
     assert fused > 0 and acc == 0 and plain_calls[0] == 0, (
         fused, acc, plain_calls)
+    assert_lm_on_path(tag, st, len(sys_.all_frame_poses) - 1)
     return fused
 
 
@@ -1053,8 +1118,9 @@ def _runner(args, timeout=900):
     """`lsd_slam_tpu_torch.io.runner.main(ARGS)` in a fresh process
     (`chip_smoke.py --counted-runner ARGS`, see `counted_runner`); returns
     (stdout, frames per second from its `done:` line, its kernel counts).
-    Fails unless the run launched the fused kernel, never the accumulators
-    entry, and called no plain version."""
+    Fails unless the run launched the fused kernel and `lm_level`, never
+    the accumulators entry, and called no plain version (the LM loop's
+    included)."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
@@ -1070,8 +1136,8 @@ def _runner(args, timeout=900):
     assert lines[-1].startswith(COUNTS_TAG), proc.stdout[-3000:]
     counts = json.loads(lines[-1][len(COUNTS_TAG):])
     assert (counts["fused"] > 0 and counts["accumulators"] == 0
-            and counts["plain"] == 0 and counts["segment_plain"] == 0), (
-        args, counts)
+            and counts["plain"] == 0 and counts["segment_plain"] == 0
+            and counts["lm"] > 0), (args, counts)
     return proc.stdout, done_fps(done[0]), counts
 
 
@@ -1097,6 +1163,7 @@ def counted_runner(argv, multihost_gates=False) -> int:
     and `fanout_check` on the keyframes it mirrored."""
     from lsd_slam_tpu_torch.io import runner
     from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
+    from lsd_slam_tpu_torch.ops import lm_track
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.ops import scatter
     from lsd_slam_tpu_torch.parallel import multihost_engine
@@ -1140,12 +1207,15 @@ def counted_runner(argv, multihost_gates=False) -> int:
                 counted_segment_plain() as seg_plain:
             stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
             scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+            lm_track.LAUNCHES = 0
             runner.main(argv)
             counts = dict(fused=stencil.FUSED_LAUNCHES,
                           accumulators=stencil.LAUNCHES,
-                          plain=plain_calls[0], segment_plain=seg_plain[0],
+                          plain=plain_calls[0], lm_plain=plain_calls[1],
+                          segment_plain=seg_plain[0],
                           segment_sum=scatter.LAUNCHES,
-                          segment_order=scatter.ORDER_LAUNCHES)
+                          segment_order=scatter.ORDER_LAUNCHES,
+                          lm=lm_track.LAUNCHES)
     finally:
         runner.bringup_multihost = bringup
         multihost_engine.serve = serve
@@ -1174,16 +1244,21 @@ def reloc_check(sys_, frontend) -> dict:
     """The engine's relocaliser (`KeyFrameGraph.relocalize`, which names
     the keyframes itself) on the last keyframe's frame, fanned out through
     the frontend, against the same call on rank 0 alone (the frontend
-    detached). Returns the keyframe picked, the fan-outs and quick_syncs
-    the fanned call made, whether both calls pick the same keyframe and
-    the max |init difference|."""
+    detached). Returns the keyframe picked, the fan-outs, quick_syncs and
+    `lm_level` launches (rank 0's share of the quick tracks) the fanned
+    call made, whether both calls pick the same keyframe and the max
+    |init difference|."""
+    from lsd_slam_tpu_torch.ops import lm_track
+
     graph = sys_.backend.graph
     pyr = sys_.keyframes[-1].pyr
     fanouts = frontend.fanouts
     syncs = sys_.stats.snapshot().get("quick_syncs", 0)
+    launched = lm_track.LAUNCHES
     hit = graph.relocalize(pyr)
     made = frontend.fanouts - fanouts
     bumped = sys_.stats.snapshot().get("quick_syncs", 0) - syncs
+    launched = lm_track.LAUNCHES - launched
     graph.multihost = None
     try:
         alone = graph.relocalize(pyr)
@@ -1194,7 +1269,7 @@ def reloc_check(sys_, frontend) -> dict:
     gap = (float(np.abs(np.asarray(hit[1]) - np.asarray(alone[1])).max())
            if same and hit is not None else 0.0 if same else float("inf"))
     return dict(kf=None if hit is None else hit[0].id, fanouts=made,
-                quick_syncs=bumped, same=same, gap=gap)
+                quick_syncs=bumped, lm_launches=launched, same=same, gap=gap)
 
 
 def fanout_check(frontend) -> dict:
@@ -1368,6 +1443,7 @@ def cli_phase(torch, card):
         traj, kfs, edges, n_pts, n_poses = _runner_outputs(out, CLI_FRAMES)
         launches = {"hz0": counts["fused"]}
         seg = {"hz0": (counts["segment_sum"], counts["segment_order"])}
+        LM_LAUNCHES["cli-hz0"] = counts["lm"]
         with open(os.path.join(out, "poses.jsonl")) as f:
             published = {p["id"]: p["cam_to_world"]
                          for p in map(json.loads, f)}
@@ -1376,7 +1452,8 @@ def cli_phase(torch, card):
             f"{len(edges)} edges, {n_pts} points, {n_poses} tracked poses "
             f"published; regularize_fused launches {counts['fused']}, "
             f"regularize_accumulators launches {counts['accumulators']}, "
-            f"plain-version calls {counts['plain']}")
+            f"lm_level launches {counts['lm']}, plain-version calls "
+            f"{counts['plain']} (the LM loop's {counts['lm_plain']})")
         log("[cli] runner " + next(ln for ln in stdout.splitlines()
                                    if ln.startswith("timing:")))
 
@@ -1451,12 +1528,14 @@ def cli_phase(torch, card):
                                     f"checkpoint:{ckpt}"])
         launches["checkpoint"] = counts["fused"]
         seg["checkpoint"] = (counts["segment_sum"], counts["segment_order"])
+        LM_LAUNCHES["cli-checkpoint"] = counts["lm"]
         stdout, fps_b, counts = _runner([f"files:{halves[1]}",
                                          f"calib:{calib}",
                                          f"out:{os.path.join(root, 'out_b')}",
                                          f"resume:{ckpt}"])
         launches["resume"] = counts["fused"]
         seg["resume"] = (counts["segment_sum"], counts["segment_order"])
+        LM_LAUNCHES["cli-resume"] = counts["lm"]
         traj_b, kfs_b, _, _, n_b = _runner_outputs(
             os.path.join(root, "out_b"), CLI_FRAMES, need_graph=False)
         assert "resumed from" in stdout
@@ -1474,6 +1553,7 @@ def cli_phase(torch, card):
                                          "hz:30", "pipeline:3"])
         launches["hz30_pipeline3"] = counts["fused"]
         seg["hz30_pipeline3"] = (counts["segment_sum"], counts["segment_order"])
+        LM_LAUNCHES["cli-hz30_pipeline3"] = counts["lm"]
         traj_p, kfs_p, edges_p, n_pts_p, _ = _runner_outputs(
             os.path.join(root, "out_p"), CLI_FRAMES)
         pairs = {tuple(sorted(e)) for e in edges_p}
@@ -1485,7 +1565,8 @@ def cli_phase(torch, card):
         log(f"[cli] regularize_fused launches per runner run {launches}, "
             f"{sum(launches.values())} in all; no regularize_accumulators "
             f"launch, no plain-version call; (segment_sum, segment_order) "
-            f"launches {seg}")
+            f"launches {seg}; lm_level launches "
+            f"{ {k: v for k, v in LM_LAUNCHES.items() if k.startswith('cli')} }")
         for run, (fold, order) in seg.items():
             SEGMENT_LAUNCHES[f"cli-{run}"] = fold
             ORDER_LAUNCHES[f"cli-{run}"] = order
@@ -1493,6 +1574,302 @@ def cli_phase(torch, card):
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- the trackers' LM level loop
+
+@contextlib.contextmanager
+def recorded_lm_inputs(keep=4):
+    """Record the arguments of the last `keep` calls of `tracking.lm.level`
+    (what the trackers call; on the card it launches `lm_level`) while
+    inside: the main path's own inputs of the kernel. The arguments are
+    kept, not copied (the port writes no tracker input in place), so the
+    recording adds no device work to the timed run. Yields the deque."""
+    import collections
+    from lsd_slam_tpu_torch.tracking import lm
+
+    seen = collections.deque(maxlen=keep)
+    real = lm.level
+
+    def call(*a, **k):
+        seen.append(a)
+        return real(*a, **k)
+
+    lm.level = call
+    try:
+        yield seen
+    finally:
+        lm.level = real
+
+
+def lm_bound(n_points, trials):
+    """The least time of one launch: every pass (the first and one per
+    trial, summed over the lanes: what these inputs needed) reads
+    LM_BYTES_PER_POINT per point; returns (ms, "bytes" or "operations",
+    passes)."""
+    passes = int((trials.long() + 1).sum())
+    t_bytes = passes * n_points * LM_BYTES_PER_POINT / HBM_BYTES_PER_S * 1e3
+    t_ops = passes * n_points * LM_OPS_PER_POINT / F32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", passes)
+
+
+@contextlib.contextmanager
+def f64_sums():
+    """Inside, the plain LM passes (tracking/se3_tracker.py) sum in f64 as
+    the kernel does: every per-point term stays the f32 value the plain
+    version computes, each sum over the points (the moments, the counts,
+    the error, the normal equations' products) is taken in f64 and rounded
+    to f32 once."""
+    import torch
+    from lsd_slam_tpu_torch.tracking import se3_tracker as se3
+
+    real_torch, real_ne = se3.torch, se3._normal_equations
+
+    class Torch64:
+        def __getattr__(self, name):
+            return getattr(real_torch, name)
+
+        @staticmethod
+        def sum(x, *a, **k):
+            if x.dtype != real_torch.float32:
+                return real_torch.sum(x, *a, **k)
+            return real_torch.sum(x.double(), *a, **k).float()
+
+    def normal_equations(buffers, weight):
+        px, py, pz = buffers["px"], buffers["py"], buffers["pz"]
+        gx, gy, r = buffers["dx"], buffers["dy"], buffers["r"]
+        z = 1.0 / pz
+        z2 = z * z
+        J = torch.stack([
+            z * gx, z * gy, -px * z2 * gx - py * z2 * gy,
+            -px * py * z2 * gx - (1.0 + py * py * z2) * gy,
+            (1.0 + px * px * z2) * gx + px * py * z2 * gy,
+            -py * z * gx + px * z * gy], dim=-1)
+        n = torch.clamp_min(torch.sum(buffers["mask"], dim=-1),
+                            1).to(torch.float32)
+        Jw = J * weight.unsqueeze(-1)
+        A = (Jw.unsqueeze(-1) * J.unsqueeze(-2)).double().sum(-3).float()
+        g = (Jw * r.unsqueeze(-1)).double().sum(-2).float()
+        return A / n[..., None, None], g / n[..., None]
+
+    se3.torch, se3._normal_equations = Torch64(), normal_equations
+    try:
+        yield
+    finally:
+        se3.torch, se3._normal_equations = real_torch, real_ne
+
+
+def mesh_witness(within, args):
+    """The plain loop on the CPU as the witness of the kernel at lanes that
+    start at the rounding floor of their noise-free images ([mesh]'s),
+    where an ulp can send a lane's loop elsewhere. The CPU's: the card's
+    torch divides a tensor by a Python float through the float's f32
+    reciprocal, one ulp off the quotient that the kernel and the CPU's
+    torch compute, which moves the first pass's error by up to 3.6e-4
+    relative on these lanes (PERF.md section 6, PR 9). A lane is settled
+    where the plain loop summing in f64 (`f64_sums`) and the plain loop on
+    the lane's points in another order both meet the bounds (`within`)
+    against the plain loop: there, rounding of the sums does not decide the
+    result. Returns the plain loop's result and the settled lanes."""
+    from lsd_slam_tpu_torch.tracking import lm
+
+    def cpu(x):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return type(x)(**{f.name: cpu(getattr(x, f.name))
+                              for f in dataclasses.fields(x)})
+        return x.cpu() if hasattr(x, "cpu") else x
+
+    pose, a, b, pts, quads, *rest = [cpu(x) for x in args]
+    plain = lm.level_plain(pose, a, b, pts, quads, *rest)
+    with f64_sums():
+        summed = lm.level_plain(pose, a, b, pts, quads, *rest)
+    import torch
+    perm = torch.randperm(int(pts.idx.shape[-1]),
+                          generator=torch.Generator().manual_seed(1))
+    moved = type(pts)(**{f.name: (getattr(pts, f.name) if f.name == "n_valid"
+                                  else getattr(pts, f.name)[..., perm])
+                         for f in dataclasses.fields(pts)})
+    reordered = lm.level_plain(pose, a, b, moved, quads, *rest)
+    settled = within(summed, plain) & within(reordered, plain)
+    return types.SimpleNamespace(plain=plain, settled=settled)
+
+
+def lm_phase(torch, card, vo_levels):
+    """Phase [lm]: the kernel `lm_level` against its plain version
+    (`tracking.lm.level_plain`) on the card, held to the bounds of
+    tests/test_torch_lm.py (pose within LM_POSE_ATOL, the level's error
+    within LM_ERR_RTOL relative, the affine pair within LM_AFF_ATOL, the
+    diverged flags and the trial and accept counts equal), a second launch
+    giving the first one's bits:
+      * the four levels of [vo]'s last tracked frame, on the inputs the
+        main path gave the kernel (SE(3) schedule, B = 1);
+      * the quick schedule over 64 lanes on [vo]'s level-4 inputs (the
+        quick tracker's level at 640x480), each lane's init the recorded
+        one disturbed (seeded), both ways the quick tracker batches: a
+        point set per lane against one frame layout, and one point set
+        against a layout per lane.
+    Then [mesh]'s 64 quick lanes (BenchScene; a point set or a layout of
+    its own per lane, both directions), held to the plain loop where
+    rounding does not decide the result (`mesh_witness`), and timed.
+    CUDA-event ms of the kernel and of the plain loop on the same inputs,
+    beside the byte bound of the passes these inputs needed. Returns the
+    kernels line's numbers."""
+    from lsd_slam_tpu_torch import lie
+    from lsd_slam_tpu_torch.tracking import lm
+    from lsd_slam_tpu_torch.tracking.quick_tracker import stack_points
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    def gaps(a, b):
+        """Per lane: whether a meets the bounds against b, and the pose
+        gap."""
+        pose = (a.pose - b.pose).abs().reshape(-1, 7).max(dim=1).values
+        fin = torch.isfinite(a.last_err) & torch.isfinite(b.last_err)
+        err = torch.where(fin, (a.last_err - b.last_err).abs()
+                          / b.last_err.abs(), torch.zeros_like(a.last_err))
+        ok = ((pose <= LM_POSE_ATOL) & (err.reshape(-1) <= LM_ERR_RTOL)
+              & (a.diverged == b.diverged).reshape(-1)
+              & (a.trials == b.trials).reshape(-1)
+              & (a.its == b.its).reshape(-1))
+        if torch.is_tensor(a.aff_a):
+            d = torch.maximum((a.aff_a - b.aff_a).abs(),
+                              (a.aff_b - b.aff_b).abs()).reshape(-1)
+            ok &= ~(d > LM_AFF_ATOL)       # NaN (a diverged lane) passes
+        return ok, pose, err.reshape(-1)
+
+    def run(args):
+        got, again = lm.level(*args), lm.level(*args)
+        want = lm.level_plain(*args)
+        torch.cuda.synchronize()
+        twice = all(torch.equal(bits(getattr(got, f)),
+                                bits(getattr(again, f)))
+                    for f in ("pose", "last_err", "diverged", "trials",
+                              "its"))
+        return got, want, twice
+
+    def check(name, args):
+        got, want, twice = run(args)
+        ok, pose, err = gaps(got, want)
+        log(f"[lm] {name}: trials kernel {got.trials.reshape(-1).tolist()} "
+            f"/ plain {want.trials.reshape(-1).tolist()}, accepted "
+            f"{got.its.reshape(-1).tolist()} / "
+            f"{want.its.reshape(-1).tolist()}; diverged "
+            f"{int(got.diverged.sum())} / {int(want.diverged.sum())} lanes; "
+            f"max |pose - plain| {float(pose.max()):.3g} (bound "
+            f"{LM_POSE_ATOL:g}), error {float(err.max()):.3g} relative "
+            f"({LM_ERR_RTOL:g}); lanes within the bounds {int(ok.sum())} of "
+            f"{len(ok)}; second launch bit-equal {twice}")
+        assert twice and bool(ok.all()), (name, twice, pose, err)
+        return got, float(pose.max())
+
+    def times(args, per_batch):
+        return (time_gpu(torch, lambda: lm.level(*args), per_batch, 10),
+                time_gpu(torch, lambda: lm.level_plain(*args), 1, 3))
+
+    assert len(vo_levels) == 4, len(vo_levels)
+    levels, worst = [], 0.0
+    for args in vo_levels:
+        cam = args[5]
+        lvl = int(round(math.log2(640 / cam.width)))
+        n_pts = int(args[3].idx.shape[-1])
+        got, err = check(f"[vo] level {lvl} ({cam.width}x{cam.height}, "
+                         f"{n_pts} points)", args)
+        worst = max(worst, err)
+        ms, plain_ms = times(args, 20)
+        b_ms, b_by, passes = lm_bound(n_pts, got.trials)
+        levels.append(dict(level=lvl, points=n_pts,
+                           trials=int(got.trials), its=int(got.its),
+                           ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, passes=passes,
+                           us_per_pass=ms * 1e3 / passes))
+        log(f"[lm] [vo] level {lvl}: kernel {ms:.4f} ms ({passes} passes, "
+            f"{ms * 1e3 / passes:.2f} us each), plain loop {plain_ms:.3f} "
+            f"ms, bound {b_ms:.5f} ms ({b_by}); {card}")
+    track = {k: sum(lv[k] for lv in levels)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    track["bound_by"] = ("bytes" if all(lv["bound_by"] == "bytes"
+                                        for lv in levels) else "operations")
+    log(f"[lm] one track (levels 4..1): kernel {track['ms']:.4f} ms, plain "
+        f"loop {track['plain_ms']:.3f} ms, bound {track['bound_ms']:.5f} ms; "
+        f"{card}")
+
+    # the quick schedule, 64 lanes on [vo]'s level-4 inputs
+    pose4, _, _, pts4, quad4, cam4, cfg4, sigma2, _ = vo_levels[0]
+    lanes = QUICK_LANES
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(np.concatenate(
+        [rng.normal(0, 0.01, (lanes, 3)), rng.normal(0, 0.005, (lanes, 3))],
+        axis=1), dtype=torch.float32, device=pose4.device)
+    inits = lie.se3_mul(lie.se3_exp(noise), pose4.expand(lanes, 7))
+    sched = lm.quick_schedule(cfg4)
+    n4 = int(pts4.idx.shape[-1])
+    quick = {}
+    for name, pts, quads in (
+            ("refs", stack_points([pts4] * lanes), quad4),
+            ("frames", pts4, torch.stack([quad4] * lanes))):
+        args = (inits, 1.0, 0.0, pts, quads, cam4, cfg4, sigma2, sched)
+        got, err = check(f"quick {name}, {lanes} lanes on [vo]'s level 4",
+                         args)
+        worst = max(worst, err)
+        ms, plain_ms = times(args, 20)
+        b_ms, b_by, passes = lm_bound(n4, got.trials)
+        quick[name] = dict(lanes=lanes, points=n4, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, passes=passes,
+                           trials_max=int(got.trials.max()))
+        log(f"[lm] quick {name} ([vo]'s level 4): kernel {ms:.4f} ms "
+            f"({passes} passes over {lanes} blocks), plain loop "
+            f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); {card}")
+
+    # [mesh]'s lanes: distinct data per lane, held where rounding does not
+    # decide, and timed
+    tracker, refs, quad, frames, inits, one = quick_lanes(torch, lanes)
+    caml = tracker.cam.level(tracker.level)
+    sched = lm.quick_schedule(tracker.cfg)
+    for name, pts, quads in (("refs", refs, quad), ("frames", one, frames)):
+        args = (inits, 1.0, 0.0, pts, quads, caml, tracker.cfg,
+                tracker.sigma2, sched)
+        got, again = lm.level(*args), lm.level(*args)
+        card_plain = lm.level_plain(*args)
+        torch.cuda.synchronize()
+        twice = all(torch.equal(bits(getattr(got, f)),
+                                bits(getattr(again, f)))
+                    for f in ("pose", "last_err", "diverged", "trials",
+                              "its"))
+        w = mesh_witness(lambda *a: gaps(*a)[0], args)
+        kernel_ok = gaps(lm.LevelResult(*(
+            x.cpu() if torch.is_tensor(x) else x for x in (
+                got.pose, got.aff_a, got.aff_b, got.last_err, got.diverged,
+                got.trials, got.its))), w.plain)[0]
+        held = kernel_ok[w.settled]
+        n_card = int(gaps(got, card_plain)[0].sum())
+        ms, plain_ms = times(args, 20)
+        n_pts = int(pts.idx.shape[-1])
+        b_ms, b_by, passes = lm_bound(n_pts, got.trials)
+        quick[f"mesh_{name}"] = dict(
+            lanes=lanes, points=n_pts, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, passes=passes,
+            settled_lanes=int(w.settled.sum()), kernel_held=int(held.sum()),
+            kernel_within_bounds=int(kernel_ok.sum()),
+            card_plain_within=n_card)
+        log(f"[lm] [mesh]'s quick {name}: lanes the CPU witnesses settle "
+            f"(the plain loop with f64 sums and on reordered points within "
+            f"the bounds of the plain loop) {int(w.settled.sum())} of "
+            f"{lanes} ({int((w.settled & (w.plain.its > 0)).sum())} with an "
+            f"accepted step); the kernel within the bounds on "
+            f"{int(held.sum())} of them, on {int(kernel_ok.sum())} of all "
+            f"{lanes} (the card's "
+            f"plain loop: {n_card}); mean errors "
+            f"{float(w.plain.last_err.min()):.3g} to "
+            f"{float(w.plain.last_err.max()):.3g}; second launch bit-equal "
+            f"{twice}; kernel {ms:.4f} ms ({passes} passes), plain loop "
+            f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); {card}")
+        assert twice, name
+        assert w.settled.any(), name
+        assert bool(held.all()), (
+            name, (w.settled & ~kernel_ok).nonzero().flatten().tolist())
+    return dict(levels=levels, track=track, quick=quick, max_abs_err=worst)
 
 
 # ---- the order-fixed scatter-sum, the sparse PGO, the appearance index,
@@ -1991,7 +2368,7 @@ def mesh_phase(torch, card):
     launches."""
     from lsd_slam_tpu_torch.lie import np_sim3 as nps
     from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph, _assemble
-    from lsd_slam_tpu_torch.ops import scatter
+    from lsd_slam_tpu_torch.ops import lm_track, scatter
     from lsd_slam_tpu_torch.parallel import (
         distributed_pgo_normal_equations, make_mesh, sharded_quick_track,
         sharded_quick_track_frames)
@@ -2014,6 +2391,7 @@ def mesh_phase(torch, card):
 
     with counted_segment_plain() as plain:
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+        lm_track.LAUNCHES = 0
         # the gathered dense assembly, 64 vertices
         verts, edges, _ = circle_graph(64)
         pg = PoseGraph(device="cuda", mesh=mesh)
@@ -2101,9 +2479,12 @@ def mesh_phase(torch, card):
             assert flags and gap <= QUICK_BOUND and again, (name, gap)
         torch.cuda.synchronize()
         launches = scatter.LAUNCHES, scatter.ORDER_LAUNCHES
+        LM_LAUNCHES["mesh"] = lm_track.LAUNCHES
     log(f"[mesh] segment_sum launches {launches[0]}, segment_order launches "
-        f"{launches[1]}, plain-version calls {plain[0]}")
+        f"{launches[1]}, lm_level launches {LM_LAUNCHES['mesh']}, "
+        f"plain-version calls {plain[0]}")
     assert min(launches) > 0 and plain[0] == 0, (launches, plain)
+    assert LM_LAUNCHES["mesh"] > 0
     SEGMENT_LAUNCHES["mesh"], ORDER_LAUNCHES["mesh"] = launches
     return launches
 
@@ -2295,16 +2676,19 @@ def multihost_phase(card, frames, calib, root, want_kfs, want_edges,
         f"and {r1['collective_secs']:.3f} s on rank 1")
     log(f"[multihost] rank 0 launches: regularize_fused {r0['fused']}, "
         f"segment_sum {r0['segment_sum']}, segment_order "
-        f"{r0['segment_order']}, plain {r0['plain']}; rank 1: "
-        f"regularize_fused {r1['fused']}, segment_sum {r1['segment_sum']}, "
-        f"segment_order {r1['segment_order']}, plain {r1['plain']}")
+        f"{r0['segment_order']}, lm_level {r0['lm']}, plain {r0['plain']}; "
+        f"rank 1: regularize_fused {r1['fused']}, segment_sum "
+        f"{r1['segment_sum']}, segment_order {r1['segment_order']}, "
+        f"lm_level {r1['lm']}, plain {r1['plain']}")
     assert kfs == want_kfs, (kfs, want_kfs)
     assert edges == want_edges, (edges, want_edges)
     assert gap <= 5e-3, gap
     assert r0["pgo_calls"] > 0, r0
     reloc = r0["reloc_check"]
     assert reloc["kf"] is not None and reloc["same"], reloc
-    assert reloc["fanouts"] > 0 and reloc["quick_syncs"] > 0, reloc
+    # the relocaliser's quick tracks ran: rank 0 launched the LM kernel for
+    # its share of the fanned batch (its quick loops pull no flag)
+    assert reloc["fanouts"] > 0 and reloc["lm_launches"] > 0, reloc
     assert reloc["gap"] <= QUICK_BOUND, reloc
     check = r0["fanout_check"]
     assert check["flags_equal"] and check["gap"] <= QUICK_BOUND, check
@@ -2315,6 +2699,8 @@ def multihost_phase(card, frames, calib, root, want_kfs, want_edges,
     for r, c in enumerate(counts):
         SEGMENT_LAUNCHES[f"multihost-rank{r}"] = c["segment_sum"]
         ORDER_LAUNCHES[f"multihost-rank{r}"] = c["segment_order"]
+        LM_LAUNCHES[f"multihost-rank{r}"] = c["lm"]
+    assert r0["lm"] > 0, r0
     return r0["fused"]
 
 
@@ -2493,6 +2879,7 @@ def warmup_run(mode: str) -> int:
     and kernel launches, as the last line."""
     import torch
     from lsd_slam_tpu_torch.config import LSDConfig
+    from lsd_slam_tpu_torch.ops import lm_track
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.ops import scatter
     from lsd_slam_tpu_torch.system import SlamSystem, warmup
@@ -2509,10 +2896,12 @@ def warmup_run(mode: str) -> int:
     if mode == "with":
         stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+        lm_track.LAUNCHES = 0
         out["warmup"] = warmup(cam, cfg)
         out["warmup_fused"] = stencil.FUSED_LAUNCHES
         out["warmup_segment_sum"] = scatter.LAUNCHES
         out["warmup_segment_order"] = scatter.ORDER_LAUNCHES
+        out["warmup_lm"] = lm_track.LAUNCHES
     t0 = time.perf_counter()
     sys_ = SlamSystem(cam, cfg)
     sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
@@ -2550,15 +2939,17 @@ def warmup_phase(card):
         f"{got['without']['init_ms']:.1f} ms, first frame steps "
         f"{[round(x, 1) for x in got['without']['frame_ms']]} ms; after "
         f"warmup(cam, cfg) ({w['warmup']}, {w['warmup_fused']} fused and "
-        f"{w['warmup_segment_sum']} segment_sum and "
-        f"{w['warmup_segment_order']} segment_order launches) gt_depth_init "
+        f"{w['warmup_segment_sum']} segment_sum, "
+        f"{w['warmup_segment_order']} segment_order and {w['warmup_lm']} "
+        f"lm_level launches) gt_depth_init "
         f"{w['init_ms']:.1f} ms, first frame steps "
         f"{[round(x, 1) for x in w['frame_ms']]} ms; {card}")
     assert w["warmup"]["keyframes"] >= 2 and w["warmup"]["reloc_warmed"]
     assert w["warmup_fused"] > 0 and w["warmup_segment_sum"] > 0
-    assert w["warmup_segment_order"] > 0
+    assert w["warmup_segment_order"] > 0 and w["warmup_lm"] > 0
     SEGMENT_LAUNCHES["warmup"] = w["warmup_segment_sum"]
     ORDER_LAUNCHES["warmup"] = w["warmup_segment_order"]
+    LM_LAUNCHES["warmup"] = w["warmup_lm"]
     return w["warmup_fused"]
 
 
@@ -2686,6 +3077,65 @@ def pipeline_turns(torch, card):
             f"{syncs / (len(run.sys.all_frame_poses) + 1):.2f}; {card}")
 
 
+@contextlib.contextmanager
+def lm_route(plain: bool):
+    """Inside, with `plain`, the trackers' LM loops run the plain version
+    on the card as well (`tracking.lm.level_plain`: one flag pull per
+    trial, the host loop's kind the port ran before the kernel) instead
+    of the kernel; for `--lm-turns` only."""
+    from lsd_slam_tpu_torch.tracking import lm
+
+    real = lm.level
+    if plain:
+        lm.level = lm.level_plain
+    try:
+        yield
+    finally:
+        lm.level = real
+
+
+def lm_turns(torch, card):
+    """`chip_smoke.py --lm-turns`: [vo]'s sequence, [slam]'s (lag 0, each
+    frame synchronised) and [slam-pipelined]'s (lag 3) with the LM loops
+    on the kernel and on the plain loop, in turns (kernel, plain, plain,
+    kernel), on one card in one call: frames per second, p50 / p95 frame
+    ms, the track stage's median (dispatch window), host syncs and LM
+    trial flags per frame, keyframes."""
+    with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
+                           "vo_orbit_640x480.json")) as f:
+        vo_ref = json.load(f)
+    runs = (("slam", load_ref(SLAM_RUNS["slam"][0]), True),
+            ("slam-pipelined", load_ref(SLAM_RUNS["slam-pipelined"][0]),
+             False))
+    for route in ("kernel", "plain", "plain", "kernel"):
+        with lm_route(route == "plain"):
+            sys_, _, fms, _ = run_vo(torch, vo_ref, profile=False)
+            st = sys_.stats.snapshot()
+            steady = fms[1:]
+            n = len(fms)
+            log(f"[lm-turns] {route} [vo]: "
+                f"{len(steady) / (sum(steady) / 1e3):.3f} fps, p50 "
+                f"{np.percentile(fms, 50):.3f} ms, p95 "
+                f"{np.percentile(fms, 95):.3f} ms, track "
+                f"{sys_.timers.median('track'):.2f} ms; syncs per frame "
+                f"{sum(st.get(k, 0) for k in SYNC_KEYS) / n:.2f}, SE3 LM "
+                f"flags {st.get('lm_syncs', 0):.0f}; {card}")
+            for tag, ref, sync_each in runs:
+                run = run_slam(torch, ref, sync_each=sync_each)
+                st = run.sys.stats.snapshot()
+                n = ref["n_frames"]
+                frames = len(run.sys.all_frame_poses) + 1
+                log(f"[lm-turns] {route} [{tag}]: "
+                    f"{(n - 1) / run.track_s:.3f} fps, p50 "
+                    f"{np.percentile(run.fms, 50):.3f} ms, p95 "
+                    f"{np.percentile(run.fms, 95):.3f} ms, track "
+                    f"{run.sys.timers.median('track'):.2f} ms; syncs per "
+                    f"frame {sum(st.get(k, 0) for k in SYNC_KEYS) / frames:.2f}"
+                    f", SE3 LM flags {st.get('lm_syncs', 0):.0f}, quick LM "
+                    f"flags {st.get('quick_syncs', 0):.0f}; keyframes "
+                    f"{[kf.id for kf in run.sys.keyframes]}; {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu",
@@ -2697,6 +3147,9 @@ def main() -> int:
                     "[scatter]")
     ap.add_argument("--pipeline-turns", action="store_true",
                     help="only time lag 0 against lag 3, in turns")
+    ap.add_argument("--lm-turns", action="store_true",
+                    help="only time the LM kernel against the plain LM "
+                    "loop on [vo] and [slam]'s sequences, in turns")
     ap.add_argument("--counted-runner", nargs=argparse.REMAINDER,
                     metavar="ARG", help="run io.runner.main(ARG...) with "
                     "the kernel counts as the last line ([cli] uses it)")
@@ -2729,7 +3182,7 @@ def main() -> int:
     if args.pgo_rank:
         r, w, coord, chan, out = args.pgo_rank
         return pgo_rank(int(r), int(w), int(coord), int(chan), out)
-    from lsd_slam_tpu_torch.ops import build
+    from lsd_slam_tpu_torch.ops import build, lm_track
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.ops import scatter
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
@@ -2763,6 +3216,9 @@ def main() -> int:
     log(f"[build] {json.dumps(secs)} total {time.perf_counter() - t0:.2f} s")
     if args.pipeline_turns:
         pipeline_turns(torch, card)
+        return 0
+    if args.lm_turns:
+        lm_turns(torch, card)
         return 0
     baseline = walk = None
     if "segment_sum_walk" in extra:
@@ -2813,13 +3269,16 @@ def main() -> int:
     with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
                            "vo_orbit_640x480.json")) as f:
         ref = json.load(f)
-    with counted_plain(stencil) as plain_calls:
+    with counted_plain(stencil) as plain_calls, \
+            recorded_lm_inputs() as vo_levels:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
+        lm_track.LAUNCHES = 0
         sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
         launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
         SEGMENT_LAUNCHES["vo"] = scatter.LAUNCHES
         ORDER_LAUNCHES["vo"] = scatter.ORDER_LAUNCHES
+        LM_LAUNCHES["vo"] = lm_track.LAUNCHES
     st = sys_.stats.snapshot()
     n = ref["n_frames"]
     traj = sys_.trajectory_array()
@@ -2853,6 +3312,7 @@ def main() -> int:
         f"{plain_calls[0]}, segment_sum launches {SEGMENT_LAUNCHES['vo']}, "
         f"segment_order launches {ORDER_LAUNCHES['vo']}, "
         f"over {n - 1} tracked frames")
+    assert_lm_on_path("vo", st, n - 1)
     log(f"[vo] stage ms (dispatch windows): {sys_.timers.summary()}")
     assert sys_.tracking_is_good, "tracking lost"
     assert created >= 1, "no keyframe switch"
@@ -2896,6 +3356,10 @@ def main() -> int:
                  ref["n_frames"] - 1, 10)
 
     phase_done("VO")
+
+    # ---- 19. the LM level kernel against its plain version ----
+    lm_row = lm_phase(torch, card, vo_levels)
+    phase_done("lm")
 
     # ---- 5. SLAM at full width ----
     log(f"[slam] card: {card}")
@@ -3030,6 +3494,21 @@ def main() -> int:
              bound_ms=prop["order_bound_bytes"], bound_by="bytes",
              library_ms=prop["torch_sort"],
              library_note="torch.sort(idx, stable=True)"),
+        dict(name="lm_level", route="cuda",
+             source="lsd_slam_tpu_torch/csrc/lm_track.cu",
+             replaces="lsd_slam_tpu/tracking/se3_tracker.py:184-253 (the "
+                      "XLA while_loop of _track_level; no Pallas "
+                      "counterpart)",
+             also_replaces=["lsd_slam_tpu/tracking/quick_tracker.py:66-104"],
+             launches=sum(LM_LAUNCHES.values()), path_launches=LM_LAUNCHES,
+             max_abs_err=lm_row["max_abs_err"],
+             shape="one 640x480 track of [vo]: levels 4..1, B = 1",
+             ms=lm_row["track"]["ms"], plain_ms=lm_row["track"]["plain_ms"],
+             bound_ms=lm_row["track"]["bound_ms"],
+             bound_by=lm_row["track"]["bound_by"],
+             library_ms=None,
+             library_note="no single PyTorch call runs an LM loop",
+             levels=lm_row["levels"], quick=lm_row["quick"]),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

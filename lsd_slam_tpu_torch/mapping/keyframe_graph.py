@@ -185,9 +185,9 @@ class KeyFrameGraph:
 
     # lanes per shard from which a sharded batch pays. The JAX package's
     # shards run in parallel and cross over at 4; the port's run one after
-    # another (each its own LM loop and flag pulls) and lost to one device
-    # at every size measured, so the gate stays closed until they run
-    # concurrently. Instance-settable (tests set 0)
+    # another (each its own LM loop) and lost to one device at every size
+    # measured, so the gate stays closed until they run concurrently.
+    # Instance-settable (tests set 0)
     mesh_min_lanes_per_device = math.inf
 
     def _use_mesh_batch(self, n: int) -> bool:

@@ -27,6 +27,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "regularize_stencil": "regularize_stencil.cu",
     "segment_sum": "segment_sum.cu",
+    "lm_track": "lm_track.cu",
 }
 
 # -fmad=false: the kernels must round like the JAX lattice, which never

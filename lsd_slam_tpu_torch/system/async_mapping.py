@@ -44,7 +44,8 @@ class WorkerError(RuntimeError):
 
 class _Worker:
     """A daemon thread running `_loop` while `_running`, with an idle event
-    for drain waits and the failure record of the rules above."""
+    for drain waits, a count of the items pushed and not yet done for
+    `wait_for_room`, and the failure record of the rules above."""
 
     name = "lsd-worker"
 
@@ -54,6 +55,31 @@ class _Worker:
         self._idle = threading.Event()
         self._idle.set()
         self.error: Optional[Exception] = None
+        self._pending = 0
+        self._done = threading.Condition()
+
+    def _push(self, queue: NotifyQueue, item) -> bool:
+        """Queue `item`, counted pending until `_finished` (a dropped item
+        is not counted)."""
+        with self._done:
+            if not queue.push(item):
+                return False
+            self._pending += 1
+            return True
+
+    def _finished(self, n: int):
+        with self._done:
+            self._pending -= n
+            self._done.notify_all()
+
+    def wait_for_room(self, limit: int, timeout: float = 60.0) -> bool:
+        """Block while more than `limit` pushed items are not done (queued
+        or being worked on); returns at once when the worker has stopped
+        or failed. False on timeout."""
+        with self._done:
+            return self._done.wait_for(
+                lambda: (self._pending <= limit or not self._running
+                         or self.error is not None), timeout)
 
     def start(self):
         if self._running:
@@ -70,6 +96,7 @@ class _Worker:
             self.error = exc
             self._running = False
             self._idle.set()
+            self._finished(0)
 
     def _wake(self):
         """Unblock the loop so that it sees `_running` cleared."""
@@ -77,6 +104,7 @@ class _Worker:
     def stop(self, timeout: float = 60.0):
         self._running = False
         self._wake()
+        self._finished(0)
         if self._thread is not None:
             self._thread.join(timeout=timeout)
             self._thread = None
@@ -108,7 +136,7 @@ class MappingThread(_Worker):
         Busy is marked before the push, so the worker's idle mark after
         draining it can never come first."""
         self._idle.clear()
-        return self.queue.push(tracked)
+        return self._push(self.queue, tracked)
 
     def _loop(self):
         sys_ = self.system
@@ -132,6 +160,7 @@ class MappingThread(_Worker):
             try:
                 sys_.do_mapping_iteration_batch(batch)
             finally:
+                self._finished(len(batch))
                 if self.queue.size() == 0:
                     self._idle.set()
 
@@ -159,7 +188,7 @@ class ConstraintThread(_Worker):
     def push(self, kf) -> bool:
         self._idle.clear()
         self._quiesce.clear()
-        return self.queue.push(kf)
+        return self._push(self.queue, kf)
 
     def wait_until_drained(self, timeout: float = 120.0) -> bool:
         self._quiesce.set()
@@ -225,6 +254,7 @@ class ConstraintThread(_Worker):
                 if n > 0:
                     self.backend.signal_new_constraints()
             finally:
+                self._finished(1)
                 if self.queue.size() == 0:
                     self._idle.set()
 

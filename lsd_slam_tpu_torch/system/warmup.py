@@ -17,11 +17,12 @@ caches on disk by a hash of source and flags, so the JAX package's
 the card the episode moves out of the first real frame what a fresh
 process pays there once: the CUDA context, the cuBLAS and cuSOLVER
 handles and their library loads, the load of each kernel's `.so` (built
-first if the disk cache lacks it), and the caching allocator's first
-pools. It leaves nothing behind that a later engine reads: every engine
-keeps its own state (its keyframe graph draws from its own
-`random.Random(0)`), so a run after warm-up gives the same bits as
-without it.
+first if the disk cache lacks it: the episode's tracks launch `lm_level`,
+its regularize calls `regularize_fused`, its scatter-adds the segment
+kernels), and the caching allocator's first pools. It leaves nothing
+behind that a later engine reads: every engine keeps its own state (its
+keyframe graph draws from its own `random.Random(0)`), so a run after
+warm-up gives the same bits as without it.
 """
 
 from __future__ import annotations

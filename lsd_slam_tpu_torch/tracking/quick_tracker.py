@@ -10,11 +10,12 @@ tracker's residual, weights and normal equations.
 
 The JAX package runs the LM as a device `while_loop`, vmapped for the
 batched entries (N refs against one frame, one ref against N frames). Here
-every entry is the batched loop: each lane carries its own state, a lane
-whose `cond` is false keeps its state (`torch.where`, as the vmapped
-`while_loop` selects), and the host reads one "any lane active" flag per
-trial (counted in `QuickTrackResult.n_syncs`). A single track is a batch
-of one.
+every entry is the batched loop `lm.level` with the quick schedule: on the
+card one launch of the kernel `lm_level` with a block per lane (point sets
+or quad layouts shared across lanes are read in place), pulling nothing
+until the caller reads the (B, 11) pack; on the CPU the plain loop, whose
+"any lane active" check per trial is counted in
+`QuickTrackResult.n_syncs`. A single track is a batch of one.
 """
 
 from __future__ import annotations
@@ -24,12 +25,12 @@ from dataclasses import dataclass
 
 import torch
 
-from lsd_slam_tpu_torch import lie
 from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import TrackerConfig
+from lsd_slam_tpu_torch.tracking import lm
 from lsd_slam_tpu_torch.tracking.reference import PointSet
 from lsd_slam_tpu_torch.tracking.se3_tracker import (
-    _residual_pass, _weights_pass, _normal_equations)
+    _residual_pass, _weights_pass)
 
 
 @dataclass
@@ -85,58 +86,13 @@ def _quick_impl(cam: Camera, cfg: TrackerConfig, sigma2: float, level: int,
     (N,) shared or (B, N); frame_quad (H*W, 12) shared or (B, H*W, 12)."""
     caml = cam.level(level)
     h, w = caml.height, caml.width
-    min_points = cfg.min_goodperall_pixel_absmin * h * w
-    dev = init_ref_to_frame.device
-    b = init_ref_to_frame.shape[0]
-    eye6 = 1e-12 * torch.eye(6, dtype=torch.float32, device=dev)
 
     def res(pose):
         return _residual_pass(pose, 1.0, 0.0, ref_pts, frame_quad, caml, cfg)
 
-    pose = init_ref_to_frame
-    buffers, stats = res(pose)
-    diverged = stats["in_count"] < min_points
-    weight, last_err = _weights_pass(pose, buffers, cfg, sigma2)
-    A, g = _normal_equations(buffers, weight)
-    lam = torch.zeros(b, dtype=torch.float32, device=dev)
-    it = torch.zeros(b, dtype=torch.int32, device=dev)
-    trials = torch.zeros(b, dtype=torch.int32, device=dev)
-    done = diverged.clone()
-    max_its = cfg.max_its_test_track
-    syncs = 0
-    while True:
-        active = (it < max_its) & ~done & (trials < max_its * 3)
-        syncs += 1
-        if not bool(active.any()):
-            break
-        Ad = A + lam[:, None, None] * torch.diag_embed(
-            torch.diagonal(A, dim1=-2, dim2=-1))
-        inc = torch.linalg.solve_ex(Ad + eye6, g.unsqueeze(-1),
-                                    check_errors=False)[0].squeeze(-1)
-        new_pose = lie.se3_mul(lie.se3_exp(inc), pose)
-        buffers, stats = res(new_pose)
-        div = stats["in_count"] < min_points
-        weight, err = _weights_pass(new_pose, buffers, cfg, sigma2)
-        A_new, g_new = _normal_equations(buffers, weight)
-        accept = (err < last_err) & ~div
-        converged = (err / torch.clamp_min(last_err, 1e-12)
-                     > cfg.convergence_eps_test_track)
-        step_small = torch.sum(inc * inc, dim=-1) \
-            < cfg.step_size_min_test_track
-        take = active & accept
-        pose = torch.where(take[:, None], new_pose, pose)
-        A = torch.where(take[:, None, None], A_new, A)
-        g = torch.where(take[:, None], g_new, g)
-        last_err = torch.where(take, err, last_err)
-        lam = torch.where(active, torch.where(
-            accept, torch.clamp_min(lam * 0.5, 0.0),
-            torch.where(lam == 0, torch.full_like(lam, 0.2), lam * 4.0)), lam)
-        it = it + take.to(torch.int32)
-        trials = trials + active.to(torch.int32)
-        done = done | (active & (div | (accept & converged)
-                                 | (~accept & step_small)))
-        diverged = diverged | (active & div)
-
+    out = lm.level(init_ref_to_frame, 1.0, 0.0, ref_pts, frame_quad, caml,
+                   cfg, sigma2, lm.quick_schedule(cfg))
+    pose, diverged = out.pose, out.diverged
     buffers, stats = res(pose)
     _, final_err = _weights_pass(pose, buffers, cfg, sigma2)
     good = stats["good_count"].to(torch.float32)
@@ -151,7 +107,7 @@ def _quick_impl(cam: Camera, cfg: TrackerConfig, sigma2: float, level: int,
         ref_to_frame=pose, tracking_good=tracking_good, diverged=diverged,
         point_usage=stats["usage"] / ref_num,
         good_count=stats["good_count"], bad_count=stats["bad_count"],
-        residual=final_err, n_syncs=syncs)
+        residual=final_err, n_syncs=out.n_syncs)
 
 
 def pack_result(res: QuickTrackResult) -> torch.Tensor:

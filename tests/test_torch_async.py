@@ -114,6 +114,100 @@ def test_worker_failure_is_raised_by_the_next_call():
     assert not any(w.alive() for w in sys_.workers())
 
 
+def _gated_mapping(sys_):
+    """Make the mapping thread's iterations wait on the returned gate."""
+    gate, batches = threading.Event(), []
+
+    def iteration(batch):
+        batches.append(len(batch))
+        assert gate.wait(30.0)
+    sys_.do_mapping_iteration_batch = iteration
+    return gate, batches
+
+
+def test_back_pressure_waits_for_the_mapping_thread():
+    """`wait_for_room(limit)` blocks while more than `limit` pushed frames
+    are unmapped (queued or in the batch being mapped)."""
+    sys_ = SlamSystem(CAM, THREADED, device="cpu")
+    try:
+        mt = sys_.mapping_thread
+        gate, batches = _gated_mapping(sys_)
+        assert mt.push("frame 1") and mt.push("frame 2")
+        assert not mt.wait_for_room(1, timeout=0.2)
+        gate.set()
+        assert mt.wait_for_room(0, timeout=30.0)
+        assert sum(batches) == 2
+    finally:
+        gate.set()
+        sys_.finalize()
+
+
+def test_back_pressure_returns_when_the_mapping_thread_fails():
+    sys_ = SlamSystem(CAM, THREADED, device="cpu")
+    try:
+        sys_.do_mapping_iteration_batch = _raise
+        sys_.mapping_thread.push(object())
+        sys_.mapping_thread.push(object())
+        assert sys_.mapping_thread.wait_for_room(0, timeout=30.0)
+    finally:
+        with pytest.raises(WorkerError):
+            sys_.finalize()
+
+
+def test_threaded_track_frame_waits_for_room_first(monkeypatch):
+    """A threaded frame waits for the mapping thread (at most
+    `max_unmapped_frames` unmapped) before it reads the keyframe it
+    tracks on."""
+    sys_ = SlamSystem(CAM, THREADED, device="cpu")
+    try:
+        scene = synth.PlaneScene(seed=3)
+        poses = synth.orbit_trajectory(2)
+        img0, dep0 = synth.render(scene, CAM, poses[0], device="cpu")
+        img1, _ = synth.render(scene, CAM, poses[1], device="cpu")
+        sys_.gt_depth_init(img0, dep0, 0, 0.0)
+        calls = []
+        real = sys_.mapping_thread.wait_for_room
+
+        def wait(limit, timeout=60.0):
+            calls.append((limit, sys_.mapping_thread._pending))
+            return real(limit, timeout)
+        monkeypatch.setattr(sys_.mapping_thread, "wait_for_room", wait)
+        sys_.track_frame(img1, 1, 1 / 30.0)
+        sys_.track_frame(img1, 2, 2 / 30.0)
+        assert [c[0] for c in calls] == [SlamSystem.max_unmapped_frames] * 2
+        assert calls[0][1] == 0
+        sys_.block_until_mapped(30.0)
+    finally:
+        sys_.finalize()
+
+
+def test_lost_frame_waits_for_the_queued_constraint_searches():
+    """The relocaliser votes with graph neighbours, which the constraint
+    thread adds: a lost frame first waits until every keyframe queued for
+    constraint search has been searched."""
+    sys_ = SlamSystem(CAM, THREADED, device="cpu")
+    gate, seen = threading.Event(), []
+
+    class Graph:
+        @staticmethod
+        def find_constraints_for_new_keyframe(kf, force_parent):
+            assert gate.wait(30.0)
+            return 0
+    try:
+        backend = sys_.backend
+        backend._ensure = lambda: Graph
+        backend.relocalize = lambda pyr: seen.append(
+            backend.constraint_thread._pending)
+        assert backend.constraint_thread.push("keyframe")
+        threading.Timer(0.2, gate.set).start()
+        t0 = time.perf_counter()
+        sys_._attempt_relocalization(None, 5, 0.0)
+        assert seen == [0] and time.perf_counter() - t0 >= 0.15
+    finally:
+        gate.set()
+        sys_.finalize()
+
+
 def test_healthy_threaded_finalize_stops_every_worker():
     sys_ = SlamSystem(CAM, THREADED, device="cpu")
     sys_.finalize()

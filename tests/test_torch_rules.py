@@ -45,10 +45,12 @@ PRODUCT_MODULES = ("io.runner", "io.dataset", "io.output", "io.checkpoint",
                    "io.live", "io.dump", "io.trajectory", "viewer.render",
                    "viewer.live", "viewer.stitch", "camera.undistort",
                    "utils.image_io", "utils.debug_viz")
-# the order-fixed scatter-sum and the modules built on it, and warm-up
+# the order-fixed scatter-sum and the modules built on it, warm-up, and
+# the trackers' LM level loop
 BACKEND_MODULES = ("ops.scatter", "mapping.sparse_pgo", "mapping.appearance",
                    "system.warmup", "parallel.distributed",
-                   "parallel.multihost", "parallel.multihost_engine")
+                   "parallel.multihost", "parallel.multihost_engine",
+                   "ops.lm_track", "tracking.lm")
 
 _IMPORT_RUNNER = r"""
 import sys
@@ -363,3 +365,97 @@ def test_launch_counter_keeps_every_count_across_threads(monkeypatch):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert stencil.FUSED_LAUNCHES == 500 * n_threads
+
+
+def _lm_scene(device):
+    """A 160x128 keyframe with its ground-truth depth and a frame moved by
+    a small SE(3), made by the port alone (this file imports no JAX)."""
+    from lsd_slam_tpu_torch import lie
+    from lsd_slam_tpu_torch.frames import build_depth_pyramid, build_frame
+    from lsd_slam_tpu_torch.tracking import make_tracking_ref
+
+    scene = synth.PlaneScene(seed=5)
+    pose_a = lie.se3_identity()
+    pose_b = lie.se3_mul(lie.se3_exp(torch.tensor(
+        [0.02, -0.012, 0.015, 0.006, -0.01, 0.004])), pose_a)
+    img_a, dep_a = synth.render(scene, CAM, pose_a, device=device)
+    img_b, _ = synth.render(scene, CAM, pose_b, device=device)
+    ok = dep_a > 0
+    idepth = torch.where(ok, 1.0 / torch.where(ok, dep_a, 1.0), 0.0)
+    ivar = torch.where(ok, torch.full_like(dep_a, 1e-3), 0.0)
+    ref = make_tracking_ref(build_frame(img_a),
+                            build_depth_pyramid(idepth, ivar),
+                            min_level=1, with_sim3=False)
+    return ref, build_frame(img_b), pose_b.to(device)
+
+
+@pytest.mark.cuda
+def test_se3_track_on_the_card_launches_the_lm_kernel(monkeypatch):
+    """A whole SE(3) track on CUDA tensors launches `lm_level` once per
+    level, never the plain loop, pulls nothing inside (n_syncs 0), and
+    lands within tests/test_torch_tracker.py's pose bound of the CPU
+    port's plain loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.tracking import SE3Tracker, lm
+
+    init = torch.tensor([1.0, 0, 0, 0, 0, 0, 0])
+    tracker = SE3Tracker(CAM, CFG.tracker, 16.0, True)
+    ref, frame, _ = _lm_scene("cpu")
+    want = tracker.track(ref, frame, init)
+    ref, frame, _ = _lm_scene("cuda")
+
+    def plain(*a, **k):
+        raise AssertionError("plain LM loop reached with CUDA tensors")
+
+    monkeypatch.setattr(lm, "level_plain", plain)
+    before = lm_track.LAUNCHES
+    got = tracker.track(ref, frame, init.cuda())
+    torch.cuda.synchronize()
+    levels = CFG.tracker.max_level - CFG.tracker.min_level + 1
+    assert lm_track.LAUNCHES - before == levels
+    assert got.n_syncs == 0 and got.diverged.is_cuda
+    assert bool(got.tracking_good) and not bool(got.diverged)
+    np.testing.assert_allclose(got.ref_to_frame.cpu().numpy(),
+                               want.ref_to_frame.numpy(), rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_quick_batch_on_the_card_matches_the_plain_loop():
+    """Four quick lanes (shared frame, one point set per lane) through the
+    kernel against the plain loop on the same CUDA tensors: poses within
+    2e-5, flags and trial and accept counts equal; a second launch gives
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from lsd_slam_tpu_torch import lie
+    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.tracking import lm
+    from lsd_slam_tpu_torch.tracking.quick_tracker import (QuickTracker,
+                                                           stack_points)
+
+    ref, frame, truth = _lm_scene("cuda")
+    level = QuickTracker(CAM, CFG.tracker, 16.0).level
+    moves = torch.tensor([[0.01, -0.01, 0.005, 0.004, -0.003, 0.002],
+                          [0, 0, 0, 0, 0, 0], [100.0, 0, 0, 0, 0, 0],
+                          [-0.02, 0.015, -0.01, -0.006, 0.005, -0.003]],
+                         device="cuda")
+    inits = lie.se3_mul(lie.se3_exp(moves), truth.expand(4, 7))
+    args = (inits, 1.0, 0.0, stack_points([ref.pts[level]] * 4),
+            frame.quad[level], CAM.level(level), CFG.tracker, 16.0,
+            lm.quick_schedule(CFG.tracker))
+    before = lm_track.LAUNCHES
+    got, again = lm.level(*args), lm.level(*args)
+    want = lm.level_plain(*args)
+    torch.cuda.synchronize()
+    assert lm_track.LAUNCHES - before == 2 and got.n_syncs == 0
+    assert torch.equal(got.pose, again.pose)
+    assert torch.equal(got.trials, again.trials)
+    np.testing.assert_allclose(got.pose.cpu().numpy(),
+                               want.pose.cpu().numpy(), rtol=0, atol=2e-5)
+    assert torch.equal(got.diverged, want.diverged)
+    assert got.diverged.tolist() == [False, False, True, False]
+    assert torch.equal(got.trials, want.trials)
+    assert torch.equal(got.its, want.its)
+
