@@ -207,13 +207,21 @@ raises, so the script exits non-zero and prints no ok line:
                (a point set or layout of their own per lane) the same
                bounds against the plain loop on the CPU, on every lane
                its f64-summing and reordered runs agree with it
-               (`mesh_witness`);
-               CUDA-event ms of kernel and plain loop per level and batch,
-               beside the byte bound of the passes the inputs needed. Every
-               card path
+               (`mesh_witness`); every case launched again at every
+               power-of-two cluster size the card schedules gives the same
+               bits, with the chosen cluster size, the sum tree's chunks and
+               each block's staged points and shared memory logged;
+               CUDA-event ms of kernel and plain loop per level and batch
+               (and of the kernel at each cluster size), beside the bound
+               (`lm_bound`: each input read once, the passes the inputs
+               needed in operations), and at [vo]'s levels
+               the kernel's own clock stamps: the median sweep, fold and
+               tail of a pass. Every card path
                ([vo], the SLAM phases, [cli], [multihost], [warmup],
-               [mesh]) launches `lm_level` and calls no plain LM loop, and
-               [vo] and the SLAM phases pull no SE(3) or quick LM flag.
+               [mesh]) launches `lm_level` and calls no plain LM loop, its
+               launches by cluster size are logged, [vo] and the SLAM
+               phases launch clusters of more than one block, and pull no
+               SE(3) or quick LM flag.
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -244,6 +252,17 @@ its kernel counts as the last line (what [cli] runs for each runner call);
 
 times a fresh engine's first calls with or without warm-up first and
 prints them as the last line (what [warmup] runs in each process).
+
+    python3 chip_smoke.py --lm-only [--baseline-lm-cu BASELINE.cu]
+
+runs only the build, [vo] (its LM level inputs recorded) and [lm]: one
+short call. `--baseline-lm-cu baselines/lm_track_04f70d1_stamped.cu`
+(here or in the full run) also builds that file, commit 04f70d1's
+csrc/lm_track.cu (one block per lane) with the stamp buffer added
+(`lsd_lm_level(17 pointers, lanes, params, stream)`; any other file is
+refused, by its sha256, before anything is built), and at [vo]'s levels
+prints its phase split, whether it gives the current kernel's bits, and
+its ms in turns with the current kernel.
 
     python3 chip_smoke.py --lm-turns
 
@@ -333,17 +352,17 @@ BIT_EQUAL_RUNS = ("slam", "slam-pipelined")
 # step) in each path's run (counts zeroed just before)
 SEGMENT_LAUNCHES = {}
 ORDER_LAUNCHES = {}
-# launches of the trackers' LM level kernel (`lm_level`) in each path's run
+# launches of the trackers' LM level kernel (`lm_level`) in each path's run,
+# and those launches by cluster size (blocks per lane)
 LM_LAUNCHES = {}
+LM_CLUSTERS = {}
 # [lm], the kernel against its plain version on the card: the bounds of
 # tests/test_torch_lm.py (pose, the level's error relative, the affine
 # pair; flags and trial and accept counts equal)
 LM_POSE_ATOL, LM_ERR_RTOL, LM_AFF_ATOL = 2e-5, 1e-4, 1e-3
-# bytes one LM pass reads per point: the int64 index, ival, idp, ivr, the
-# valid byte, and one 48-byte quad row; and its arithmetic, counted from
-# csrc/lm_track.cu (warp, bilinear sample, residual and moments, weight,
-# Jacobian, 27 products into A and g; f32 ops and the 33 f64 adds)
-LM_BYTES_PER_POINT = 8 + 4 * 3 + 1 + 48
+# the arithmetic of one LM pass per point, counted from csrc/lm_track.cu
+# (warp, bilinear sample, residual and moments, weight, Jacobian, 27
+# products into A and g; f32 ops and the 33 f64 adds)
 LM_OPS_PER_POINT = 175 + 33
 # ... and the bound of the card's ATE (raw and after PGO) as a multiple of
 # the reference's: the same runs reach 1.05x on the bench, 1.16x on the loop
@@ -801,9 +820,12 @@ def assert_lm_on_path(tag, st, n_tracked):
     `lm_level`, and neither the SE(3) nor the quick tracker pulled a trial
     flag."""
     log(f"[{tag}] lm_level launches {LM_LAUNCHES[tag]} over {n_tracked} "
-        f"tracked frames; LM trial flags pulled: SE3 "
-        f"{st.get('lm_syncs', 0):.0f}, quick {st.get('quick_syncs', 0):.0f}")
+        f"tracked frames, by cluster size {LM_CLUSTERS[tag]}; LM trial flags "
+        f"pulled: SE3 {st.get('lm_syncs', 0):.0f}, quick "
+        f"{st.get('quick_syncs', 0):.0f}")
     assert LM_LAUNCHES[tag] >= 4 * n_tracked, (tag, LM_LAUNCHES[tag])
+    # the SE(3) track's levels 1-3 spread over a cluster
+    assert any(int(c) > 1 for c in LM_CLUSTERS[tag]), LM_CLUSTERS[tag]
     assert st.get("lm_syncs", 0) == 0 and st.get("quick_syncs", 0) == 0, st
 
 
@@ -824,11 +846,13 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         lm_track.LAUNCHES = 0
+        lm_track.CLUSTER_SIZES.clear()
         run = run_slam(torch, ref, sync_each=sync_each)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
         ORDER_LAUNCHES[tag] = scatter.ORDER_LAUNCHES
         LM_LAUNCHES[tag] = lm_track.LAUNCHES
+        LM_CLUSTERS[tag] = dict(lm_track.CLUSTER_SIZES)
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     st = sys_.stats.snapshot()
@@ -938,11 +962,13 @@ def threaded_phase(torch, stencil, counted_plain, tag):
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         lm_track.LAUNCHES = 0
+        lm_track.CLUSTER_SIZES.clear()
         run = run_slam(torch, ref, sequential=False, sync_each=False)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
         ORDER_LAUNCHES[tag] = scatter.ORDER_LAUNCHES
         LM_LAUNCHES[tag] = lm_track.LAUNCHES
+        LM_CLUSTERS[tag] = dict(lm_track.CLUSTER_SIZES)
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     n_edges = sys_.backend.graph.pose_graph.n_edges
@@ -1208,6 +1234,7 @@ def counted_runner(argv, multihost_gates=False) -> int:
             stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
             scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
             lm_track.LAUNCHES = 0
+            lm_track.CLUSTER_SIZES.clear()
             runner.main(argv)
             counts = dict(fused=stencil.FUSED_LAUNCHES,
                           accumulators=stencil.LAUNCHES,
@@ -1215,7 +1242,8 @@ def counted_runner(argv, multihost_gates=False) -> int:
                           segment_plain=seg_plain[0],
                           segment_sum=scatter.LAUNCHES,
                           segment_order=scatter.ORDER_LAUNCHES,
-                          lm=lm_track.LAUNCHES)
+                          lm=lm_track.LAUNCHES,
+                          lm_clusters=dict(lm_track.CLUSTER_SIZES))
     finally:
         runner.bringup_multihost = bringup
         multihost_engine.serve = serve
@@ -1444,6 +1472,7 @@ def cli_phase(torch, card):
         launches = {"hz0": counts["fused"]}
         seg = {"hz0": (counts["segment_sum"], counts["segment_order"])}
         LM_LAUNCHES["cli-hz0"] = counts["lm"]
+        LM_CLUSTERS["cli-hz0"] = counts["lm_clusters"]
         with open(os.path.join(out, "poses.jsonl")) as f:
             published = {p["id"]: p["cam_to_world"]
                          for p in map(json.loads, f)}
@@ -1529,6 +1558,7 @@ def cli_phase(torch, card):
         launches["checkpoint"] = counts["fused"]
         seg["checkpoint"] = (counts["segment_sum"], counts["segment_order"])
         LM_LAUNCHES["cli-checkpoint"] = counts["lm"]
+        LM_CLUSTERS["cli-checkpoint"] = counts["lm_clusters"]
         stdout, fps_b, counts = _runner([f"files:{halves[1]}",
                                          f"calib:{calib}",
                                          f"out:{os.path.join(root, 'out_b')}",
@@ -1536,6 +1566,7 @@ def cli_phase(torch, card):
         launches["resume"] = counts["fused"]
         seg["resume"] = (counts["segment_sum"], counts["segment_order"])
         LM_LAUNCHES["cli-resume"] = counts["lm"]
+        LM_CLUSTERS["cli-resume"] = counts["lm_clusters"]
         traj_b, kfs_b, _, _, n_b = _runner_outputs(
             os.path.join(root, "out_b"), CLI_FRAMES, need_graph=False)
         assert "resumed from" in stdout
@@ -1554,6 +1585,7 @@ def cli_phase(torch, card):
         launches["hz30_pipeline3"] = counts["fused"]
         seg["hz30_pipeline3"] = (counts["segment_sum"], counts["segment_order"])
         LM_LAUNCHES["cli-hz30_pipeline3"] = counts["lm"]
+        LM_CLUSTERS["cli-hz30_pipeline3"] = counts["lm_clusters"]
         traj_p, kfs_p, edges_p, n_pts_p, _ = _runner_outputs(
             os.path.join(root, "out_p"), CLI_FRAMES)
         pairs = {tuple(sorted(e)) for e in edges_p}
@@ -1602,13 +1634,26 @@ def recorded_lm_inputs(keep=4):
         lm.level = real
 
 
-def lm_bound(n_points, trials):
-    """The least time of one launch: every pass (the first and one per
-    trial, summed over the lanes: what these inputs needed) reads
-    LM_BYTES_PER_POINT per point; returns (ms, "bytes" or "operations",
-    passes)."""
-    passes = int((trials.long() + 1).sum())
-    t_bytes = passes * n_points * LM_BYTES_PER_POINT / HBM_BYTES_PER_S * 1e3
+def lm_bound(args, got):
+    """The least time of one launch (`args` a recorded `tracking.lm.level`
+    call, `got` its result): the bytes of every input read once (the point
+    fields and the quad layout as given, shared or per lane, and the
+    initial pose and affine pair) and every output written once, against
+    LM_OPS_PER_POINT per point for every pass the lanes took (the first
+    and one per trial: what these inputs needed). Returns (ms, "bytes" or
+    "operations", passes)."""
+    import torch
+    from lsd_slam_tpu_torch.ops import lm_track
+
+    pose, aff_a, aff_b, pts, quad = args[:5]
+    moved = [getattr(pts, f) for f in lm_track.POINT_FIELDS] + [
+        quad, pose, aff_a, aff_b, got.pose, got.aff_a, got.aff_b,
+        got.last_err, got.diverged, got.trials, got.its]
+    n_bytes = sum(t.numel() * t.element_size() for t in moved
+                  if torch.is_tensor(t))
+    passes = int((got.trials.long() + 1).sum())
+    n_points = int(pts.idx.shape[-1])
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = passes * n_points * LM_OPS_PER_POINT / F32_FLOP_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", passes)
@@ -1695,13 +1740,124 @@ def mesh_witness(within, args):
     return types.SimpleNamespace(plain=plain, settled=settled)
 
 
-def lm_phase(torch, card, vo_levels):
+def lm_phase_split(torch, args, clock_mhz, launches=5, **kw):
+    """Where one launch of `lm_level` spends its cycles: the kernel's stamp
+    buffer (`ops.lm_track.lm_level(stamps=...)`) on `args` (a recorded
+    `tracking.lm.level` call), `launches` launches; per pass the leader
+    thread's sweep (its own points), the fold (the rest of the sums, the
+    barriers included) and the tail (the solve, the update and the
+    barriers up to the next pass). Returns the medians over every pass in
+    cycles and in us at `clock_mhz`, and the passes a launch ran."""
+    from dataclasses import asdict
+    from lsd_slam_tpu_torch.ops import lm_track
+
+    pose, a, b, pts, quad, cam, cfg, sigma2, sched = args
+    sched = asdict(sched)
+    fields = tuple(getattr(pts, f) for f in lm_track.POINT_FIELDS)
+    stamps = torch.zeros(lm_track.stamp_slots(sched), dtype=torch.int64,
+                         device=pose.device)
+    parts = {"sweep": [], "fold": [], "tail": []}
+    for _ in range(launches):
+        stamps.zero_()
+        out = lm_track.lm_level(pose, a, b, fields, quad, cam, cfg, sigma2,
+                                sched, stamps=stamps, **kw)
+        passes = int(out[5].reshape(-1)[0]) + 1
+        st = stamps.cpu().numpy()
+        end = st[-1]
+        for q in range(passes):
+            s0, s1, s2 = st[3 * q:3 * q + 3]
+            nxt = st[3 * (q + 1)] if q + 1 < passes else end
+            parts["sweep"].append(s1 - s0)
+            parts["fold"].append(s2 - s1)
+            parts["tail"].append(nxt - s2)
+    out = {"passes": passes}
+    for k, v in parts.items():
+        cyc = float(np.median(v))
+        out[k] = dict(cycles=cyc, us=cyc / clock_mhz)
+    return out
+
+
+@contextlib.contextmanager
+def lm_baseline_entry(lib):
+    """Inside, `ops.lm_track.lm_level` launches the entry of `lib`, the
+    build of baselines/lm_track_04f70d1_stamped.cu (one block per lane,
+    the stamp buffer: `lsd_lm_level(17 pointers, lanes, params, stream)`;
+    its `Params` are the first fields of today's), for `--baseline-lm-cu`
+    only."""
+    from lsd_slam_tpu_torch.ops import lm_track
+
+    fn = lib.lsd_lm_level
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int, ctypes.c_void_p,
+                                            ctypes.c_void_p]
+    real = lm_track._entry
+
+    def entry():
+        # drop the cluster and shared-memory sizes the old entry lacks
+        return lambda *a: fn(*a[:18], *a[20:])
+
+    lm_track._entry = entry
+    try:
+        yield
+    finally:
+        lm_track._entry = real
+
+
+def every_cluster(torch, name, args, got, card):
+    """`args` (a recorded `tracking.lm.level` call) launched at every
+    power-of-two cluster size the card schedules: each gives the bits of
+    `got` (the launch at the chosen size). Logs the chosen size, the tree
+    and the staging, and the device ms at each size; returns them."""
+    from dataclasses import asdict
+    from lsd_slam_tpu_torch.ops import lm_track
+
+    pose, a, b, pts, quad, cam, cfg, sigma2, sched = args
+    fields = tuple(getattr(pts, f) for f in lm_track.POINT_FIELDS)
+    most = lm_track.max_cluster(pose.device)
+    lanes = pose.reshape(-1, 7).shape[0]
+    n = int(pts.idx.shape[-1])
+    sms = torch.cuda.get_device_properties(pose.device).multi_processor_count
+    chosen = lm_track.choose_cluster(lanes, n, sms, most)
+    chunk, leaves, staged, smem = lm_track.launch_layout(n, chosen)
+    want = [got.pose, got.last_err, got.diverged, got.trials, got.its]
+    if torch.is_tensor(got.aff_a):
+        want += [got.aff_a, got.aff_b]
+    same, ms = {}, {}
+    c = 1
+    while c <= most:
+        def launch(c=c):
+            return lm_track.lm_level(pose, a, b, fields, quad, cam, cfg,
+                                     sigma2, asdict(sched), cluster=c)
+        out = launch()
+        outs = [out[0], out[3], out[4], out[5], out[6]]
+        if torch.is_tensor(got.aff_a):
+            outs += [out[1], out[2]]
+        same[c] = all(torch.equal(x.reshape(-1).view(torch.int32)
+                                  if x.is_floating_point() else x.reshape(-1),
+                                  y.reshape(-1).view(torch.int32)
+                                  if y.is_floating_point() else y.reshape(-1))
+                      for x, y in zip(outs, want))
+        ms[c] = time_gpu(torch, launch, 10, 5)
+        c *= 2
+    log(f"[lm] {name}: cluster {chosen} chosen ({lanes} lanes, {sms} SMs, "
+        f"the card's largest {most}); {leaves} chunks of {chunk} points, "
+        f"{staged} points staged, {smem} B of shared memory a block; the "
+        f"same bits at every cluster size: {same}; ms by cluster size "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in ms.items()) + f"; {card}")
+    assert all(same.values()), (name, same)
+    return dict(cluster=chosen, max_cluster=most, chunk=chunk,
+                leaves=leaves, staged=staged, smem_bytes=smem,
+                ms_by_cluster=ms)
+
+
+def lm_phase(torch, card, vo_levels, baseline=None):
     """Phase [lm]: the kernel `lm_level` against its plain version
     (`tracking.lm.level_plain`) on the card, held to the bounds of
     tests/test_torch_lm.py (pose within LM_POSE_ATOL, the level's error
     within LM_ERR_RTOL relative, the affine pair within LM_AFF_ATOL, the
     diverged flags and the trial and accept counts equal), a second launch
-    giving the first one's bits:
+    giving the first one's bits and every power-of-two cluster size the
+    same bits (`every_cluster`):
       * the four levels of [vo]'s last tracked frame, on the inputs the
         main path gave the kernel (SE(3) schedule, B = 1);
       * the quick schedule over 64 lanes on [vo]'s level-4 inputs (the
@@ -1713,8 +1869,11 @@ def lm_phase(torch, card, vo_levels):
     its own per lane, both directions), held to the plain loop where
     rounding does not decide the result (`mesh_witness`), and timed.
     CUDA-event ms of the kernel and of the plain loop on the same inputs,
-    beside the byte bound of the passes these inputs needed. Returns the
-    kernels line's numbers."""
+    beside their bound (`lm_bound`), and at [vo]'s levels where each
+    launch spends its cycles (`lm_phase_split`). With
+    `baseline` (a library, `--baseline-lm-cu`) the earlier kernel's split
+    and its ms in turns with today's at [vo]'s levels. Returns the kernels
+    line's numbers."""
     from lsd_slam_tpu_torch import lie
     from lsd_slam_tpu_torch.tracking import lm
     from lsd_slam_tpu_torch.tracking.quick_tracker import stack_points
@@ -1769,6 +1928,7 @@ def lm_phase(torch, card, vo_levels):
                 time_gpu(torch, lambda: lm.level_plain(*args), 1, 3))
 
     assert len(vo_levels) == 4, len(vo_levels)
+    clock_mhz = sm_clocks_mhz()[0]
     levels, worst = [], 0.0
     for args in vo_levels:
         cam = args[5]
@@ -1777,9 +1937,10 @@ def lm_phase(torch, card, vo_levels):
         got, err = check(f"[vo] level {lvl} ({cam.width}x{cam.height}, "
                          f"{n_pts} points)", args)
         worst = max(worst, err)
+        layout = every_cluster(torch, f"[vo] level {lvl}", args, got, card)
         ms, plain_ms = times(args, 20)
-        b_ms, b_by, passes = lm_bound(n_pts, got.trials)
-        levels.append(dict(level=lvl, points=n_pts,
+        b_ms, b_by, passes = lm_bound(args, got)
+        levels.append(dict(level=lvl, points=n_pts, **layout,
                            trials=int(got.trials), its=int(got.its),
                            ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, passes=passes,
@@ -1787,10 +1948,49 @@ def lm_phase(torch, card, vo_levels):
         log(f"[lm] [vo] level {lvl}: kernel {ms:.4f} ms ({passes} passes, "
             f"{ms * 1e3 / passes:.2f} us each), plain loop {plain_ms:.3f} "
             f"ms, bound {b_ms:.5f} ms ({b_by}); {card}")
+        split = lm_phase_split(torch, args, clock_mhz)
+        levels[-1]["phase_split"] = split
+        log(f"[lm] [vo] level {lvl} phase split (median per pass over "
+            f"{split['passes']} passes x 5 launches, at {clock_mhz:.0f} MHz):"
+            + "".join(f" {k} {split[k]['cycles']:.0f} cycles "
+                      f"{split[k]['us']:.2f} us;"
+                      for k in ("sweep", "fold", "tail")) + f" {card}")
+        if baseline is not None:
+            with lm_baseline_entry(baseline):
+                old = lm_phase_split(torch, args, clock_mhz)
+
+            def old_level(args=args):
+                with lm_baseline_entry(baseline):
+                    return lm.level(*args)
+            was = old_level()
+            same = all(torch.equal(bits(getattr(got, f)),
+                                   bits(getattr(was, f)))
+                       for f in ("pose", "last_err", "diverged", "trials",
+                                 "its", "aff_a", "aff_b"))
+            turns = time_in_turns(torch, [
+                ("kernel", lambda args=args: lm.level(*args)),
+                ("baseline", old_level)], 20, 10)
+            levels[-1].update(baseline_split=old, turns=turns,
+                              baseline_bits_equal=same)
+            log(f"[lm] [vo] level {lvl} baseline kernel: phase split"
+                + "".join(f" {k} {old[k]['cycles']:.0f} cycles "
+                          f"{old[k]['us']:.2f} us;"
+                          for k in ("sweep", "fold", "tail"))
+                + f" in turns: kernel {turns['kernel']:.4f} ms, baseline "
+                f"{turns['baseline']:.4f} ms; the same bits as the "
+                f"baseline: {same}; {card}")
     track = {k: sum(lv[k] for lv in levels)
              for k in ("ms", "plain_ms", "bound_ms")}
-    track["bound_by"] = ("bytes" if all(lv["bound_by"] == "bytes"
-                                        for lv in levels) else "operations")
+    if baseline is not None:
+        track["turns"] = {k: sum(lv["turns"][k] for lv in levels)
+                          for k in ("kernel", "baseline")}
+        log(f"[lm] one track in turns: kernel {track['turns']['kernel']:.4f}"
+            f" ms, baseline {track['turns']['baseline']:.4f} ms; {card}")
+    # the track's bound is the sum of its levels': named by the larger part
+    by_bytes = sum(lv["bound_ms"] for lv in levels
+                   if lv["bound_by"] == "bytes")
+    track["bound_by"] = ("bytes" if 2 * by_bytes >= track["bound_ms"]
+                         else "operations")
     log(f"[lm] one track (levels 4..1): kernel {track['ms']:.4f} ms, plain "
         f"loop {track['plain_ms']:.3f} ms, bound {track['bound_ms']:.5f} ms; "
         f"{card}")
@@ -1813,9 +2013,11 @@ def lm_phase(torch, card, vo_levels):
         got, err = check(f"quick {name}, {lanes} lanes on [vo]'s level 4",
                          args)
         worst = max(worst, err)
+        layout = every_cluster(torch, f"quick {name}", args, got, card)
         ms, plain_ms = times(args, 20)
-        b_ms, b_by, passes = lm_bound(n4, got.trials)
-        quick[name] = dict(lanes=lanes, points=n4, ms=ms, plain_ms=plain_ms,
+        b_ms, b_by, passes = lm_bound(args, got)
+        quick[name] = dict(lanes=lanes, points=n4, **layout, ms=ms,
+                           plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, passes=passes,
                            trials_max=int(got.trials.max()))
         log(f"[lm] quick {name} ([vo]'s level 4): kernel {ms:.4f} ms "
@@ -1846,7 +2048,7 @@ def lm_phase(torch, card, vo_levels):
         n_card = int(gaps(got, card_plain)[0].sum())
         ms, plain_ms = times(args, 20)
         n_pts = int(pts.idx.shape[-1])
-        b_ms, b_by, passes = lm_bound(n_pts, got.trials)
+        b_ms, b_by, passes = lm_bound(args, got)
         quick[f"mesh_{name}"] = dict(
             lanes=lanes, points=n_pts, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, passes=passes,
@@ -1866,6 +2068,8 @@ def lm_phase(torch, card, vo_levels):
             f"{twice}; kernel {ms:.4f} ms ({passes} passes), plain loop "
             f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); {card}")
         assert twice, name
+        quick[f"mesh_{name}"].update(every_cluster(
+            torch, f"[mesh]'s quick {name}", args, got, card))
         assert w.settled.any(), name
         assert bool(held.all()), (
             name, (w.settled & ~kernel_ok).nonzero().flatten().tolist())
@@ -2029,6 +2233,11 @@ def kernel_breakdown(torch, fn, calls=20):
     return {k: round(v, 3) for k, v in out.items()}
 
 
+# sha256 of the one source --baseline-lm-cu takes:
+# baselines/lm_track_04f70d1_stamped.cu, whose `lsd_lm_level` has the ABI
+# `lm_baseline_entry` binds
+LM_STAMPED_SHA256 = (
+    "0025b2e329d2ff0b52b53b15a76a5b285246fe80dbd4f1fed3ff88e5980a2d54")
 # sha256 of the one source --baseline-segment-cu takes: csrc/segment_sum.cu
 # of commit 7824632, whose `lsd_segment_sum` has the ABI bound below
 SORT_AND_WALK_SHA256 = ("e68cf89817422a1fb83f4a879f78b9c6"
@@ -2392,6 +2601,7 @@ def mesh_phase(torch, card):
     with counted_segment_plain() as plain:
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         lm_track.LAUNCHES = 0
+        lm_track.CLUSTER_SIZES.clear()
         # the gathered dense assembly, 64 vertices
         verts, edges, _ = circle_graph(64)
         pg = PoseGraph(device="cuda", mesh=mesh)
@@ -2480,6 +2690,7 @@ def mesh_phase(torch, card):
         torch.cuda.synchronize()
         launches = scatter.LAUNCHES, scatter.ORDER_LAUNCHES
         LM_LAUNCHES["mesh"] = lm_track.LAUNCHES
+        LM_CLUSTERS["mesh"] = dict(lm_track.CLUSTER_SIZES)
     log(f"[mesh] segment_sum launches {launches[0]}, segment_order launches "
         f"{launches[1]}, lm_level launches {LM_LAUNCHES['mesh']}, "
         f"plain-version calls {plain[0]}")
@@ -2700,6 +2911,7 @@ def multihost_phase(card, frames, calib, root, want_kfs, want_edges,
         SEGMENT_LAUNCHES[f"multihost-rank{r}"] = c["segment_sum"]
         ORDER_LAUNCHES[f"multihost-rank{r}"] = c["segment_order"]
         LM_LAUNCHES[f"multihost-rank{r}"] = c["lm"]
+        LM_CLUSTERS[f"multihost-rank{r}"] = c["lm_clusters"]
     assert r0["lm"] > 0, r0
     return r0["fused"]
 
@@ -2897,11 +3109,13 @@ def warmup_run(mode: str) -> int:
         stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         lm_track.LAUNCHES = 0
+        lm_track.CLUSTER_SIZES.clear()
         out["warmup"] = warmup(cam, cfg)
         out["warmup_fused"] = stencil.FUSED_LAUNCHES
         out["warmup_segment_sum"] = scatter.LAUNCHES
         out["warmup_segment_order"] = scatter.ORDER_LAUNCHES
         out["warmup_lm"] = lm_track.LAUNCHES
+        out["warmup_lm_clusters"] = dict(lm_track.CLUSTER_SIZES)
     t0 = time.perf_counter()
     sys_ = SlamSystem(cam, cfg)
     sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
@@ -2950,6 +3164,7 @@ def warmup_phase(card):
     SEGMENT_LAUNCHES["warmup"] = w["warmup_segment_sum"]
     ORDER_LAUNCHES["warmup"] = w["warmup_segment_order"]
     LM_LAUNCHES["warmup"] = w["warmup_lm"]
+    LM_CLUSTERS["warmup"] = w["warmup_lm_clusters"]
     return w["warmup_fused"]
 
 
@@ -3145,11 +3360,18 @@ def main() -> int:
                     "7824632 (checked by its sha256), to time its route "
                     "(stable torch.sort + its kernel) in turns in "
                     "[scatter]")
+    ap.add_argument("--baseline-lm-cu",
+                    help="baselines/lm_track_04f70d1_stamped.cu (checked by "
+                    "its sha256), for its phase split, its bits and its ms "
+                    "in turns in [lm]")
     ap.add_argument("--pipeline-turns", action="store_true",
                     help="only time lag 0 against lag 3, in turns")
     ap.add_argument("--lm-turns", action="store_true",
                     help="only time the LM kernel against the plain LM "
                     "loop on [vo] and [slam]'s sequences, in turns")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="only [vo] (its level inputs recorded) and [lm] "
+                    "(one short call)")
     ap.add_argument("--counted-runner", nargs=argparse.REMAINDER,
                     metavar="ARG", help="run io.runner.main(ARG...) with "
                     "the kernel counts as the last line ([cli] uses it)")
@@ -3212,6 +3434,15 @@ def main() -> int:
                   "binds", file=sys.stderr)
             return 2
         extra["segment_sum_walk"] = os.path.abspath(args.baseline_segment_cu)
+    if args.baseline_lm_cu:
+        with open(args.baseline_lm_cu, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        if digest != LM_STAMPED_SHA256:
+            print(f"chip_smoke: {args.baseline_lm_cu} (sha256 {digest}) is "
+                  "not baselines/lm_track_04f70d1_stamped.cu, the only "
+                  "source whose ABI --baseline-lm-cu binds", file=sys.stderr)
+            return 2
+        extra["lm_baseline"] = os.path.abspath(args.baseline_lm_cu)
     secs = build.build(verbose=True, sources=extra)
     log(f"[build] {json.dumps(secs)} total {time.perf_counter() - t0:.2f} s")
     if args.pipeline_turns:
@@ -3219,6 +3450,18 @@ def main() -> int:
         return 0
     if args.lm_turns:
         lm_turns(torch, card)
+        return 0
+    lm_base = None
+    if "lm_baseline" in extra:
+        lm_base = ctypes.CDLL(str(build.library_path(
+            "lm_baseline", extra["lm_baseline"])))
+    if args.lm_only:
+        with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
+                               "vo_orbit_640x480.json")) as f:
+            ref = json.load(f)
+        with recorded_lm_inputs() as vo_levels:
+            run_vo(torch, ref, profile=False)
+        lm_phase(torch, card, vo_levels, lm_base)
         return 0
     baseline = walk = None
     if "segment_sum_walk" in extra:
@@ -3274,11 +3517,13 @@ def main() -> int:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         lm_track.LAUNCHES = 0
+        lm_track.CLUSTER_SIZES.clear()
         sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
         launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
         SEGMENT_LAUNCHES["vo"] = scatter.LAUNCHES
         ORDER_LAUNCHES["vo"] = scatter.ORDER_LAUNCHES
         LM_LAUNCHES["vo"] = lm_track.LAUNCHES
+        LM_CLUSTERS["vo"] = dict(lm_track.CLUSTER_SIZES)
     st = sys_.stats.snapshot()
     n = ref["n_frames"]
     traj = sys_.trajectory_array()
@@ -3358,7 +3603,7 @@ def main() -> int:
     phase_done("VO")
 
     # ---- 19. the LM level kernel against its plain version ----
-    lm_row = lm_phase(torch, card, vo_levels)
+    lm_row = lm_phase(torch, card, vo_levels, lm_base)
     phase_done("lm")
 
     # ---- 5. SLAM at full width ----
@@ -3421,6 +3666,8 @@ def main() -> int:
     phase_done("cli")
 
 
+    log(f"[lm] lm_level launches by cluster size, per path: "
+        f"{json.dumps(LM_CLUSTERS)}")
     prop = seg_t["propagate-640x480"]
     seg_common = dict(
         source="lsd_slam_tpu_torch/csrc/segment_sum.cu",
@@ -3508,7 +3755,8 @@ def main() -> int:
              bound_by=lm_row["track"]["bound_by"],
              library_ms=None,
              library_note="no single PyTorch call runs an LM loop",
-             levels=lm_row["levels"], quick=lm_row["quick"]),
+             levels=lm_row["levels"], quick=lm_row["quick"],
+             path_clusters=LM_CLUSTERS),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

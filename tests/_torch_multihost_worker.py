@@ -3,7 +3,7 @@
     python tests/_torch_multihost_worker.py channel RANK WORLD PORT
     python tests/_torch_multihost_worker.py pgo RANK WORLD COORD CHAN PAYLOAD.npz OUT.npy
     python tests/_torch_multihost_worker.py engine RANK WORLD COORD CHAN FRAMES.npz OUT.npz
-    python tests/_torch_multihost_worker.py jax-engine FRAMES.npz OUT.npz
+    python tests/_torch_multihost_worker.py jax-frames FRAMES.npz
 
 `channel`: the port's HostChannel across WORLD processes (broadcast,
 gather, allgather, barrier), each rank checking what it received.
@@ -15,10 +15,12 @@ rank 0 runs the sequence in FRAMES.npz and writes its trajectory and
 counts, then loses tracking by hand and lets the engine relocalise, each
 relocaliser call checked against rank 0 alone, and writes the fan-outs and
 PGO calls the engine made through the frontend (read before the worker's
-own by-hand fan-out check); rank 1 serves. `jax-engine`:
-the JAX engine's single-process `run_engine(None)`, after writing the
-frames it renders (tests/multihost_engine_worker.make_sequence) to
-FRAMES.npz. The port's modes import no JAX.
+own by-hand fan-out check); rank 1 serves. `jax-frames`: the frames
+the JAX package renders (tests/multihost_engine_worker.make_sequence),
+written to FRAMES.npz; the JAX engine's run on them is recorded in
+lsd_slam_tpu_torch/reference_data/multihost_engine_160x128.json
+(tests/make_torch_multihost_reference.py). The port's modes import no
+JAX.
 """
 
 import os
@@ -204,15 +206,12 @@ def fan_out_against_local(sys_):
     return np.array([gap, float(same)])
 
 
-def jax_engine(frames_path, out_path):
-    from tests.multihost_engine_worker import make_sequence, run_engine
+def jax_frames(frames_path):
+    from tests.multihost_engine_worker import make_sequence
 
     _, imgs, deps, _ = make_sequence()
     np.savez(frames_path, imgs=np.stack(imgs), deps=np.stack(deps))
     print("frames written", flush=True)
-    traj, n_kf, n_edges, _ = run_engine(multihost=None)
-    np.savez(out_path, traj=traj, n_kf=n_kf, n_edges=n_edges)
-    print("jax engine done", flush=True)
 
 
 def main(argv):
@@ -223,8 +222,8 @@ def main(argv):
         pgo(*map(int, rest[:4]), *rest[4:])
     elif mode == "engine":
         engine(*map(int, rest[:4]), *rest[4:])
-    elif mode == "jax-engine":
-        jax_engine(*rest)
+    elif mode == "jax-frames":
+        jax_frames(*rest)
     else:
         raise SystemExit(f"unknown mode {mode!r}")
 
