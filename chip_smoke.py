@@ -221,7 +221,19 @@ raises, so the script exits non-zero and prints no ok line:
                [mesh]) launches `lm_level` and calls no plain LM loop, its
                launches by cluster size are logged, [vo] and the SLAM
                phases launch clusters of more than one block, and pull no
-               SE(3) or quick LM flag.
+               SE(3) or quick LM flag. Then the Sim(3) cases
+               (`sim3_phase`): every `sim3_level` launch of [slam]'s first
+               constraint search that runs all three stages (its scenario
+               replayed up to there; both directions, the lanes as the
+               engine padded them; the levels and the final passes),
+               each against its plain version on the card (the bounds in
+               SIM3_POSE_ATOL..., on the lanes the CPU's plain loop
+               settles; the final pass on every lane), a second launch and
+               every cluster size giving the same bits, CUDA-event ms per
+               launch, per stage and per search beside `sim3_bound`. The
+               SLAM phases, [cli]'s runner runs, [multihost] and [warmup]
+               count `sim3_level` launches (at least six a constraint
+               search) and pull no Sim(3) LM flag.
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -255,8 +267,8 @@ prints them as the last line (what [warmup] runs in each process).
 
     python3 chip_smoke.py --lm-only [--baseline-lm-cu BASELINE.cu]
 
-runs only the build, [vo] (its LM level inputs recorded) and [lm]: one
-short call. `--baseline-lm-cu baselines/lm_track_04f70d1_stamped.cu`
+runs only the build, [vo] (its LM level inputs recorded) and [lm], its
+Sim(3) cases included: one short call. `--baseline-lm-cu baselines/lm_track_04f70d1_stamped.cu`
 (here or in the full run) also builds that file, commit 04f70d1's
 csrc/lm_track.cu (one block per lane) with the stamp buffer added
 (`lsd_lm_level(17 pointers, lanes, params, stream)`; any other file is
@@ -267,10 +279,13 @@ its ms in turns with the current kernel.
     python3 chip_smoke.py --lm-turns
 
 runs only the build and [vo]'s, [slam]'s and [slam-pipelined]'s sequences
-with the LM loops on the kernel and on the plain loop in turns (kernel,
-plain, plain, kernel): fps, frame p50 / p95, the track stage, syncs per
-frame; the plain route stands for the earlier host loop (a flag pull
-per trial).
+with the LM loops on the kernels, with only the Sim(3) loop on its plain
+version, and with every LM loop (SE(3), quick and Sim(3)) on its plain
+version, in turns (kernel, sim3-plain, plain, plain, sim3-plain, kernel):
+fps, frame p50 / p95,
+the track stage, the switch frames, the constraint search, syncs per
+frame; the plain route stands for the earlier host loops (a flag pull per
+trial).
 
     python3 chip_smoke.py --pipeline-turns
 
@@ -356,6 +371,10 @@ ORDER_LAUNCHES = {}
 # and those launches by cluster size (blocks per lane)
 LM_LAUNCHES = {}
 LM_CLUSTERS = {}
+# launches of the Sim(3) tracker's level kernel (`sim3_level`: its LM loops
+# and final passes) in each path's run, and by cluster size
+SIM3_LAUNCHES = {}
+SIM3_CLUSTERS = {}
 # [lm], the kernel against its plain version on the card: the bounds of
 # tests/test_torch_lm.py (pose, the level's error relative, the affine
 # pair; flags and trial and accept counts equal)
@@ -364,6 +383,17 @@ LM_POSE_ATOL, LM_ERR_RTOL, LM_AFF_ATOL = 2e-5, 1e-4, 1e-3
 # (warp, bilinear sample, residual and moments, weight, Jacobian, 27
 # products into A and g; f32 ops and the 33 f64 adds)
 LM_OPS_PER_POINT = 175 + 33
+# [lm]'s Sim(3) cases, the kernel against the plain loop on the card: the
+# pose (8 entries, the scale included) and the affine pair as LM's, the
+# level's error and the final pass's residual means and usage relative,
+# the final pass's Hessian relative to its largest entry; flags and trial
+# and accept counts equal on every lane the CPU witnesses settle
+SIM3_POSE_ATOL, SIM3_ERR_RTOL, SIM3_HESS_RTOL = LM_POSE_ATOL, LM_ERR_RTOL, 1e-4
+# the arithmetic of one Sim(3) pass per point, counted from
+# csrc/sim3_track.cu (warp, bilinear sample and nearest tap, ESM gradient,
+# residual and moments, depth residual and usage, the coupled weights, J6
+# and J4, the 50 products and adds into LGS7; f32 ops and the 43 f64 adds)
+SIM3_OPS_PER_POINT = 276 + 43
 # ... and the bound of the card's ATE (raw and after PGO) as a multiple of
 # the reference's: the same runs reach 1.05x on the bench, 1.16x on the loop
 SLAM_ATE_RATIO = 1.5
@@ -456,14 +486,18 @@ def random_state(torch, rng, h, w):
 @contextlib.contextmanager
 def counted_plain(stencil):
     """Count the calls of the stencil's plain versions and of the LM
-    loop's (`tracking.lm.level_plain`) while inside; yields [all of them,
-    the LM loop's]."""
+    loops' (`tracking.lm.level_plain`, the Sim(3) tracker's `level_plain`
+    and `final_pass_plain`) while inside; yields [all of them, the LM
+    loops']."""
     from lsd_slam_tpu_torch.tracking import lm
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as sim3
 
     calls = [0, 0]
     plains = {(stencil, name): getattr(stencil, name) for name in (
         "regularize_plain", "regularize_accumulators_plain")}
     plains[(lm, "level_plain")] = lm.level_plain
+    for name in ("level_plain", "final_pass_plain"):
+        plains[(sim3, name)] = getattr(sim3, name)
 
     def counted(fn, of_lm):
         def call(*a, **k):
@@ -472,7 +506,7 @@ def counted_plain(stencil):
             return fn(*a, **k)
         return call
     for (mod, name), fn in plains.items():
-        setattr(mod, name, counted(fn, mod is lm))
+        setattr(mod, name, counted(fn, mod is lm or mod is sim3))
     try:
         yield calls
     finally:
@@ -690,18 +724,9 @@ def load_ref(name):
         return json.load(f)
 
 
-def run_slam(torch, ref, sequential=True, sync_each=True):
-    """The SLAM scenario of a stored reference on the card, at the
-    reference's pipeline lag. Returns a namespace: the system `sys`, gt
-    `poses`, `fms` (per-frame ms of frames 1..N-1), `sw` (switch flags),
-    `recovered` (the frame the relocaliser recovered at), `fin_ms`
-    (finalize), `track_s` (frames 1..N-1 with the ring drained) and
-    `total_s`. With sync_each the card is synchronised
-    after every frame (frame ms is then device-inclusive); without it a
-    frame's ms is its track_frame call, and the pipelined ring keeps work
-    in flight across calls. The ring is drained before the manual loss and
-    after the lost frame (a no-op at lag 0 in sequential mode), as
-    tests/make_torch_slam_reference.py does."""
+def slam_setup(torch, ref, sequential=True):
+    """The engine and frames of a stored reference's SLAM scenario on the
+    card, at the reference's pipeline lag: (system, gt poses, frames)."""
     from lsd_slam_tpu_torch.config import LSDConfig
     from lsd_slam_tpu_torch.system import SlamSystem
     from lsd_slam_tpu_torch.utils import synth
@@ -727,6 +752,23 @@ def run_slam(torch, ref, sequential=True, sync_each=True):
             sequential=sequential, use_fabmap=ref.get("use_fabmap", False)))
     sys_ = SlamSystem(cam, cfg)  # SLAM on, on the card
     assert sys_.device.type == "cuda" and sys_.backend is not None
+    return sys_, poses, frames
+
+
+def run_slam(torch, ref, sequential=True, sync_each=True):
+    """The SLAM scenario of a stored reference on the card, at the
+    reference's pipeline lag. Returns a namespace: the system `sys`, gt
+    `poses`, `fms` (per-frame ms of frames 1..N-1), `sw` (switch flags),
+    `recovered` (the frame the relocaliser recovered at), `fin_ms`
+    (finalize), `track_s` (frames 1..N-1 with the ring drained) and
+    `total_s`. With sync_each the card is synchronised
+    after every frame (frame ms is then device-inclusive); without it a
+    frame's ms is its track_frame call, and the pipelined ring keeps work
+    in flight across calls. The ring is drained before the manual loss and
+    after the lost frame (a no-op at lag 0 in sequential mode), as
+    tests/make_torch_slam_reference.py does."""
+    n = ref["n_frames"]
+    sys_, poses, frames = slam_setup(torch, ref, sequential)
     torch.cuda.synchronize()
     t_all = time.perf_counter()
     sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
@@ -815,18 +857,25 @@ def log_run(tag, run, n, fused, acc, plain):
 
 
 def assert_lm_on_path(tag, st, n_tracked):
-    """The LM loops of a card run went through the kernel: the four levels
+    """The LM loops of a card run went through the kernels: the four levels
     of every tracked frame (frame 0 is the initialisation) launched
-    `lm_level`, and neither the SE(3) nor the quick tracker pulled a trial
-    flag."""
+    `lm_level`, every constraint search launched `sim3_level` (stage (4,3)
+    alone is two levels and a final pass in each direction), and no
+    tracker (SE(3), quick, Sim(3)) pulled a trial flag."""
+    searches = int(st.get("sim3_stage0_n", 0))
+    sim3 = SIM3_LAUNCHES.get(tag, 0)
     log(f"[{tag}] lm_level launches {LM_LAUNCHES[tag]} over {n_tracked} "
-        f"tracked frames, by cluster size {LM_CLUSTERS[tag]}; LM trial flags "
-        f"pulled: SE3 {st.get('lm_syncs', 0):.0f}, quick "
-        f"{st.get('quick_syncs', 0):.0f}")
+        f"tracked frames, by cluster size {LM_CLUSTERS[tag]}; sim3_level "
+        f"launches {sim3} over {searches} constraint searches, by cluster "
+        f"size {SIM3_CLUSTERS.get(tag, {})}; LM trial flags pulled: SE3 "
+        f"{st.get('lm_syncs', 0):.0f}, quick {st.get('quick_syncs', 0):.0f}"
+        f", Sim3 {st.get('sim3_syncs', 0):.0f}")
     assert LM_LAUNCHES[tag] >= 4 * n_tracked, (tag, LM_LAUNCHES[tag])
     # the SE(3) track's levels 1-3 spread over a cluster
     assert any(int(c) > 1 for c in LM_CLUSTERS[tag]), LM_CLUSTERS[tag]
     assert st.get("lm_syncs", 0) == 0 and st.get("quick_syncs", 0) == 0, st
+    assert sim3 >= 6 * searches, (tag, sim3, searches)
+    assert st.get("sim3_syncs", 0) == 0, st
 
 
 def slam_phase(torch, stencil, counted_plain, tag, trace):
@@ -845,14 +894,17 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     with counted_plain() as plain_calls:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
-        lm_track.LAUNCHES = 0
+        lm_track.LAUNCHES = lm_track.SIM3_LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
+        lm_track.SIM3_CLUSTER_SIZES.clear()
         run = run_slam(torch, ref, sync_each=sync_each)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
         ORDER_LAUNCHES[tag] = scatter.ORDER_LAUNCHES
         LM_LAUNCHES[tag] = lm_track.LAUNCHES
         LM_CLUSTERS[tag] = dict(lm_track.CLUSTER_SIZES)
+        SIM3_LAUNCHES[tag] = lm_track.SIM3_LAUNCHES
+        SIM3_CLUSTERS[tag] = dict(lm_track.SIM3_CLUSTER_SIZES)
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     st = sys_.stats.snapshot()
@@ -915,6 +967,7 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
         fused, acc, plain_calls)
     assert SEGMENT_LAUNCHES[tag] > 0, "no segment_sum launch on the path"
     assert ORDER_LAUNCHES[tag] > 0, "no segment_order launch on the path"
+    assert SIM3_LAUNCHES[tag] > 0, "no sim3_level launch on the path"
     assert_lm_on_path(tag, sys_.stats.snapshot(),
                       len(sys_.all_frame_poses) - 1)
     share = None
@@ -961,14 +1014,17 @@ def threaded_phase(torch, stencil, counted_plain, tag):
     with counted_plain() as plain_calls:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
-        lm_track.LAUNCHES = 0
+        lm_track.LAUNCHES = lm_track.SIM3_LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
+        lm_track.SIM3_CLUSTER_SIZES.clear()
         run = run_slam(torch, ref, sequential=False, sync_each=False)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
         ORDER_LAUNCHES[tag] = scatter.ORDER_LAUNCHES
         LM_LAUNCHES[tag] = lm_track.LAUNCHES
         LM_CLUSTERS[tag] = dict(lm_track.CLUSTER_SIZES)
+        SIM3_LAUNCHES[tag] = lm_track.SIM3_LAUNCHES
+        SIM3_CLUSTERS[tag] = dict(lm_track.SIM3_CLUSTER_SIZES)
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     n_edges = sys_.backend.graph.pose_graph.n_edges
@@ -1145,8 +1201,9 @@ def _runner(args, timeout=900):
     (`chip_smoke.py --counted-runner ARGS`, see `counted_runner`); returns
     (stdout, frames per second from its `done:` line, its kernel counts).
     Fails unless the run launched the fused kernel and `lm_level`, never
-    the accumulators entry, and called no plain version (the LM loop's
-    included)."""
+    the accumulators entry, called no plain version (the LM loops'
+    included), and its constraint searches launched `sim3_level` and
+    pulled no Sim(3) flag."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
@@ -1164,6 +1221,9 @@ def _runner(args, timeout=900):
     assert (counts["fused"] > 0 and counts["accumulators"] == 0
             and counts["plain"] == 0 and counts["segment_plain"] == 0
             and counts["lm"] > 0), (args, counts)
+    # the Sim(3) loops on the card pull no flag; every search launched
+    assert counts.get("sim3_syncs", 0) == 0, (args, counts)
+    assert counts["sim3"] >= 6 * counts.get("searches", 0), (args, counts)
     return proc.stdout, done_fps(done[0]), counts
 
 
@@ -1225,16 +1285,17 @@ def counted_runner(argv, multihost_gates=False) -> int:
 
     runner.bringup_multihost = bringup_seen
     multihost_engine.serve = serve_seen
+    SlamSystem.finalize = finalize_seen
     if multihost_gates:
-        SlamSystem.finalize = finalize_seen
         multihost_engine.MultihostFrontend.stop = stop_checked
     try:
         with counted_plain(stencil) as plain_calls, \
                 counted_segment_plain() as seg_plain:
             stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
             scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
-            lm_track.LAUNCHES = 0
+            lm_track.LAUNCHES = lm_track.SIM3_LAUNCHES = 0
             lm_track.CLUSTER_SIZES.clear()
+            lm_track.SIM3_CLUSTER_SIZES.clear()
             runner.main(argv)
             counts = dict(fused=stencil.FUSED_LAUNCHES,
                           accumulators=stencil.LAUNCHES,
@@ -1243,12 +1304,18 @@ def counted_runner(argv, multihost_gates=False) -> int:
                           segment_sum=scatter.LAUNCHES,
                           segment_order=scatter.ORDER_LAUNCHES,
                           lm=lm_track.LAUNCHES,
-                          lm_clusters=dict(lm_track.CLUSTER_SIZES))
+                          lm_clusters=dict(lm_track.CLUSTER_SIZES),
+                          sim3=lm_track.SIM3_LAUNCHES,
+                          sim3_clusters=dict(lm_track.SIM3_CLUSTER_SIZES))
     finally:
         runner.bringup_multihost = bringup
         multihost_engine.serve = serve
         multihost_engine.MultihostFrontend.stop = stop
         SlamSystem.finalize = finalize
+    if "system" in seen:
+        st = seen["system"].stats.snapshot()
+        counts.update(sim3_syncs=st.get("sim3_syncs", 0),
+                      searches=st.get("sim3_stage0_n", 0))
     frontend = seen.get("frontend")
     if frontend is not None:
         counts.update(fanouts=frontend.fanouts, pgo_calls=frontend.pgo_calls,
@@ -1473,6 +1540,8 @@ def cli_phase(torch, card):
         seg = {"hz0": (counts["segment_sum"], counts["segment_order"])}
         LM_LAUNCHES["cli-hz0"] = counts["lm"]
         LM_CLUSTERS["cli-hz0"] = counts["lm_clusters"]
+        SIM3_LAUNCHES["cli-hz0"] = counts["sim3"]
+        SIM3_CLUSTERS["cli-hz0"] = counts["sim3_clusters"]
         with open(os.path.join(out, "poses.jsonl")) as f:
             published = {p["id"]: p["cam_to_world"]
                          for p in map(json.loads, f)}
@@ -1481,8 +1550,12 @@ def cli_phase(torch, card):
             f"{len(edges)} edges, {n_pts} points, {n_poses} tracked poses "
             f"published; regularize_fused launches {counts['fused']}, "
             f"regularize_accumulators launches {counts['accumulators']}, "
-            f"lm_level launches {counts['lm']}, plain-version calls "
-            f"{counts['plain']} (the LM loop's {counts['lm_plain']})")
+            f"lm_level launches {counts['lm']}, sim3_level launches "
+            f"{counts['sim3']} over {counts.get('searches', 0)} constraint "
+            f"searches (Sim3 LM flags pulled {counts.get('sim3_syncs', 0)})"
+            f", plain-version calls {counts['plain']} (the LM loops' "
+            f"{counts['lm_plain']})")
+        assert counts["sim3"] > 0, counts
         log("[cli] runner " + next(ln for ln in stdout.splitlines()
                                    if ln.startswith("timing:")))
 
@@ -1559,6 +1632,8 @@ def cli_phase(torch, card):
         seg["checkpoint"] = (counts["segment_sum"], counts["segment_order"])
         LM_LAUNCHES["cli-checkpoint"] = counts["lm"]
         LM_CLUSTERS["cli-checkpoint"] = counts["lm_clusters"]
+        SIM3_LAUNCHES["cli-checkpoint"] = counts["sim3"]
+        SIM3_CLUSTERS["cli-checkpoint"] = counts["sim3_clusters"]
         stdout, fps_b, counts = _runner([f"files:{halves[1]}",
                                          f"calib:{calib}",
                                          f"out:{os.path.join(root, 'out_b')}",
@@ -1567,6 +1642,8 @@ def cli_phase(torch, card):
         seg["resume"] = (counts["segment_sum"], counts["segment_order"])
         LM_LAUNCHES["cli-resume"] = counts["lm"]
         LM_CLUSTERS["cli-resume"] = counts["lm_clusters"]
+        SIM3_LAUNCHES["cli-resume"] = counts["sim3"]
+        SIM3_CLUSTERS["cli-resume"] = counts["sim3_clusters"]
         traj_b, kfs_b, _, _, n_b = _runner_outputs(
             os.path.join(root, "out_b"), CLI_FRAMES, need_graph=False)
         assert "resumed from" in stdout
@@ -1586,6 +1663,8 @@ def cli_phase(torch, card):
         seg["hz30_pipeline3"] = (counts["segment_sum"], counts["segment_order"])
         LM_LAUNCHES["cli-hz30_pipeline3"] = counts["lm"]
         LM_CLUSTERS["cli-hz30_pipeline3"] = counts["lm_clusters"]
+        SIM3_LAUNCHES["cli-hz30_pipeline3"] = counts["sim3"]
+        SIM3_CLUSTERS["cli-hz30_pipeline3"] = counts["sim3_clusters"]
         traj_p, kfs_p, edges_p, n_pts_p, _ = _runner_outputs(
             os.path.join(root, "out_p"), CLI_FRAMES)
         pairs = {tuple(sorted(e)) for e in edges_p}
@@ -1598,7 +1677,9 @@ def cli_phase(torch, card):
             f"{sum(launches.values())} in all; no regularize_accumulators "
             f"launch, no plain-version call; (segment_sum, segment_order) "
             f"launches {seg}; lm_level launches "
-            f"{ {k: v for k, v in LM_LAUNCHES.items() if k.startswith('cli')} }")
+            f"{ {k: v for k, v in LM_LAUNCHES.items() if k.startswith('cli')} }"
+            f"; sim3_level launches "
+            f"{ {k: v for k, v in SIM3_LAUNCHES.items() if k.startswith('cli')} }")
         for run, (fold, order) in seg.items():
             SEGMENT_LAUNCHES[f"cli-{run}"] = fold
             ORDER_LAUNCHES[f"cli-{run}"] = order
@@ -2074,6 +2155,398 @@ def lm_phase(torch, card, vo_levels, baseline=None):
         assert bool(held.all()), (
             name, (w.settled & ~kernel_ok).nonzero().flatten().tolist())
     return dict(levels=levels, track=track, quick=quick, max_abs_err=worst)
+
+
+# ---- the Sim(3) tracker's level kernel
+
+@contextlib.contextmanager
+def recorded_sim3_search():
+    """While inside, record the calls of `tracking.sim3_tracker.level` and
+    `final_pass` (what `_sim3_impl` calls; on the card each launches
+    `sim3_level`) made by the first constraint search
+    (`KeyFrameGraph.test_constraints_batch`) that runs all three stages,
+    each with its stage (0-2) and direction ("frames": the new keyframe
+    against the stacked candidates' frames; "refs": the stacked candidates
+    against the new keyframe). The arguments are kept, not copied (nothing
+    writes a tracker input in place). Yields the list, filled when such a
+    search returns."""
+    from lsd_slam_tpu_torch.mapping.keyframe_graph import KeyFrameGraph
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
+
+    got = []
+    cur = dict(calls=None, stage=-1, direction=None)
+    real = dict(level=st3.level, final_pass=st3.final_pass)
+    tracker = st3.Sim3Tracker
+    real_frames = tracker.track_batch_frames_packed
+    real_refs = tracker.track_batch_packed
+    real_search = KeyFrameGraph.test_constraints_batch
+
+    def recorded(kind):
+        def call(*a, **k):
+            if cur["calls"] is not None:
+                cur["calls"].append(dict(kind=kind, stage=cur["stage"],
+                                         direction=cur["direction"], args=a))
+            return real[kind](*a, **k)
+        return call
+
+    def frames(self, *a, **k):
+        cur["stage"] += 1       # every stage runs this direction first
+        cur["direction"] = "frames"
+        return real_frames(self, *a, **k)
+
+    def refs(self, *a, **k):
+        cur["direction"] = "refs"
+        return real_refs(self, *a, **k)
+
+    def search(self, *a, **k):
+        if got:
+            return real_search(self, *a, **k)
+        cur.update(calls=[], stage=-1, direction=None)
+        try:
+            return real_search(self, *a, **k)
+        finally:
+            calls, cur["calls"] = cur["calls"], None
+            if cur["stage"] == 2:
+                got.extend(calls)
+
+    st3.level, st3.final_pass = recorded("level"), recorded("final_pass")
+    tracker.track_batch_frames_packed = frames
+    tracker.track_batch_packed = refs
+    KeyFrameGraph.test_constraints_batch = search
+    try:
+        yield got
+    finally:
+        st3.level, st3.final_pass = real["level"], real["final_pass"]
+        tracker.track_batch_frames_packed = real_frames
+        tracker.track_batch_packed = real_refs
+        KeyFrameGraph.test_constraints_batch = real_search
+
+
+@contextlib.contextmanager
+def sim3_f64_sums():
+    """Inside, the plain Sim(3) passes (tracking/sim3_tracker.py) sum in
+    f64 as `sim3_level` does: every per-point term stays the f32 value the
+    plain version computes, each sum over the points (the moments, the
+    counts, the usage, the error sums, LGS6 and LGS4) is taken in f64 and
+    rounded to f32 once."""
+    import torch
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
+
+    real_torch, real_ne = st3.torch, st3._sim3_normal_equations
+
+    class Torch64:
+        def __getattr__(self, name):
+            return getattr(real_torch, name)
+
+        @staticmethod
+        def sum(x, *a, **k):
+            if x.dtype != real_torch.float32:
+                return real_torch.sum(x, *a, **k)
+            return real_torch.sum(x.double(), *a, **k).float()
+
+    def normal_equations(buffers, weight_p, weight_d):
+        px, py, pz = buffers["px"], buffers["py"], buffers["pz"]
+        gx, gy = buffers["dx"], buffers["dy"]
+        rp, rd = buffers["rp"], buffers["rd"]
+        z = 1.0 / pz
+        z2 = z * z
+        j6 = torch.stack([
+            z * gx, z * gy, -px * z2 * gx - py * z2 * gy,
+            -px * py * z2 * gx - (1.0 + py * py * z2) * gy,
+            (1.0 + px * px * z2) * gx + px * py * z2 * gy,
+            -py * z * gx + px * z * gy], dim=-1)
+        j4 = torch.stack([z2, z2 * py, -z2 * px, z], dim=-1)
+        j6w = j6 * weight_p.unsqueeze(-1)
+        j4w = j4 * weight_d.unsqueeze(-1)
+
+        def outer(a, b):
+            return (a.unsqueeze(-1) * b.unsqueeze(-2)).double().sum(-3).float()
+        A6, A4 = outer(j6w, j6), outer(j4w, j4)
+        b6 = (j6w * rp.unsqueeze(-1)).double().sum(-2).float()
+        b4 = (j4w * rd.unsqueeze(-1)).double().sum(-2).float()
+        A = A6.new_zeros(A6.shape[:-2] + (7, 7))
+        A[..., :6, :6] = A6
+        remap = torch.tensor(st3._REMAP, device=A.device)
+        A[..., remap[:, None], remap[None, :]] += A4
+        b = A6.new_zeros(A6.shape[:-2] + (7,))
+        b[..., :6] = b6
+        b[..., remap] += b4
+        n = (torch.sum(buffers["mask"], dim=-1)
+             + torch.sum(buffers["has_depth"], dim=-1))
+        return A, b, torch.clamp_min(n, 1).to(torch.float32)
+
+    st3.torch, st3._sim3_normal_equations = Torch64(), normal_equations
+    try:
+        yield
+    finally:
+        st3.torch, st3._sim3_normal_equations = real_torch, real_ne
+
+
+def slam_search_inputs(torch):
+    """[slam]'s scenario on the card (sequential, lag 0) up to the end of
+    its first constraint search that runs all three stages; returns that
+    search's recorded Sim(3) calls (`recorded_sim3_search`)."""
+    ref = load_ref(SLAM_RUNS["slam"][0])
+    sys_, _, frames = slam_setup(torch, ref)
+    with recorded_sim3_search() as calls:
+        sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
+        for i in range(1, ref["n_frames"]):
+            sys_.track_frame(frames[i][0], i, i / 30.0)
+            if calls:
+                break
+    torch.cuda.synchronize()
+    assert calls, "no constraint search of [slam] ran all three stages"
+    return calls
+
+
+def sim3_launch(args, kind, cluster=None):
+    """`ops.lm_track.sim3_level` on a recorded call's arguments (a level
+    or a final pass), at cluster size `cluster` (None: the chosen one)."""
+    from lsd_slam_tpu_torch.ops import lm_track
+
+    pose, a, b, pts, quad, cam, cfg, sigma2 = args[:8]
+    fields = tuple(getattr(pts, f) for f in lm_track.SIM3_POINT_FIELDS)
+    if kind == "level":
+        min_pts, max_its = args[8:10]
+        return lm_track.sim3_level(pose, a, b, fields, quad, cam, cfg, sigma2,
+                                   min_pts, max_its,
+                                   max_its + 4 * cfg.max_lm_rejects,
+                                   cluster=cluster)
+    return lm_track.sim3_level(pose, a, b, fields, quad, cam, cfg, sigma2,
+                               0.0, 0, 0, final=True, cluster=cluster)
+
+
+def sim3_bound(args, outs, passes):
+    """The least time of one `sim3_level` launch on a recorded call's
+    arguments: every input read once (the point fields as given, 29 B a
+    point, strided or not, shared or per lane; the quad layouts, 80 B a
+    row; the poses and the affine pairs) and every output written once,
+    against SIM3_OPS_PER_POINT per point for every pass the lanes took.
+    Returns (ms, "bytes" or "operations")."""
+    import torch
+    from lsd_slam_tpu_torch.ops import lm_track
+
+    pose, a, b, pts, quad = args[:5]
+    moved = [getattr(pts, f) for f in lm_track.SIM3_POINT_FIELDS]
+    moved += [quad, pose, a, b] + [t for t in outs if torch.is_tensor(t)]
+    n_bytes = sum(t.numel() * t.element_size() for t in moved
+                  if torch.is_tensor(t))
+    n_points = int(pts.idx.shape[-1])
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = passes * n_points * SIM3_OPS_PER_POINT / F32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sim3_phase(torch, card):
+    """[lm]'s Sim(3) cases: every `sim3_level` launch of [slam]'s first
+    constraint search that runs all three stages (`slam_search_inputs`:
+    stages (4,3), (2,2), (1,1), both directions, the lanes as the engine
+    padded them; each stage's levels and its final pass), on the inputs
+    the main path gave the kernel. Each is held to its plain version run
+    on the CPU (`sim3_tracker.level_plain` /
+    `final_pass_plain`), as `mesh_witness` holds `lm_level`: the kernel
+    computes each per-point term as the CPU's torch does, and the card's
+    torch divides by a Python float through its f32 reciprocal (PERF.md
+    section 6), one ulp off, which degenerate lanes amplify (the
+    plain loop on the card is run too, timed, and how many lanes it meets
+    the bounds on is logged):
+      * a level: the pose within SIM3_POSE_ATOL, the affine pair within
+        LM_AFF_ATOL, the level's error within SIM3_ERR_RTOL relative, the
+        diverged flags and the trial and accept counts equal, on every lane
+        that settles: where the CPU's plain loop summing in f64 as the
+        kernel does (`sim3_f64_sums`) meets the same bounds against the
+        CPU's plain loop, so the rounding of the sums does not decide the
+        lane's path;
+      * a final pass (one pass at the given pose, no loop): A within
+        SIM3_HESS_RTOL of the lane's largest entry, the residual means and
+        the usage within SIM3_ERR_RTOL relative, on every lane that settles
+        (the f64-summing pass within those bounds; the padding lanes of the
+        "frames" direction warp real points into zero layouts, a
+        degenerate pass whose sums rounding decides).
+    A second launch gives the first one's bits, and every power-of-two
+    cluster size the card schedules gives them too. CUDA-event ms of the
+    kernel and the plain version per launch, per stage and for the search,
+    beside the bound (`sim3_bound`). Returns the kernels line's numbers."""
+    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    def same_bits(xs, ys):
+        return all(torch.equal(bits(x), bits(y)) for x, y in zip(xs, ys)
+                   if torch.is_tensor(x))
+
+    def cpu(x):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return type(x)(**{f.name: cpu(getattr(x, f.name))
+                              for f in dataclasses.fields(x)})
+        if isinstance(x, tuple):
+            return tuple(cpu(y) for y in x)
+        return x.cpu() if torch.is_tensor(x) else x
+
+    def rel(a, b):
+        """|a - b| / |b|, 0 where both are equal (NaN included)."""
+        a, b = a.double(), b.double()
+        d = (a - b).abs() / b.abs().clamp_min(1e-30)
+        return torch.where((a == b) | (torch.isnan(a) & torch.isnan(b)),
+                           torch.zeros_like(d), d)
+
+    def level_gaps(a, b):
+        """Per lane: whether level result a meets the bounds against b,
+        and the pose gap."""
+        pose = (a.pose - b.pose).abs()
+        pose = torch.where(torch.isnan(a.pose) & torch.isnan(b.pose),
+                           torch.zeros_like(pose), pose).max(dim=1).values
+        aff = torch.maximum((a.aff_a - b.aff_a).abs(),
+                            (a.aff_b - b.aff_b).abs())
+        ok = ((pose <= SIM3_POSE_ATOL) & (rel(a.last_err, b.last_err)
+                                          <= SIM3_ERR_RTOL)
+              & ~(aff > LM_AFF_ATOL) & (a.diverged == b.diverged)
+              & (a.trials == b.trials) & (a.its == b.its))
+        return ok, pose
+
+    def final_gaps(a, b):
+        """The final pass's gaps, (5, lanes): the Hessian's relative to
+        the lane's largest entry, then the residual means' and the
+        usage's."""
+        big = b[0].abs().flatten(1).max(dim=1).values.clamp_min(1e-30)
+        hess = (a[0] - b[0]).abs().flatten(1).max(dim=1).values / big
+        return torch.stack([hess.double()] + [rel(x, y)
+                                              for x, y in zip(a[1:], b[1:])])
+
+    def final_ok(gaps):
+        """Per lane: the final pass's gaps within the bounds (NaN fails)."""
+        return (gaps[0] <= SIM3_HESS_RTOL) & (gaps[1:] <= SIM3_ERR_RTOL).all(0)
+
+    calls = slam_search_inputs(torch)
+    most = lm_track.max_cluster(calls[0]["args"][0].device, sim3=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases, worst, n_settled = [], 0.0, 0
+    stages = {}
+    for c in calls:
+        args, kind = c["args"], c["kind"]
+        lanes = int(args[0].shape[0])
+        n_pts = int(args[3].idx.shape[-1])
+        lvl = int(round(math.log2(640 / args[5].width)))
+        name = (f"Sim(3) stage {c['stage']} {c['direction']}, {kind} at "
+                f"level {lvl} ({lanes} lanes, {n_pts} points a lane, "
+                f"{'per-lane' if args[4].dim() == 3 else 'shared'} quads)")
+        out = sim3_launch(args, kind)
+        again = sim3_launch(args, kind)
+        torch.cuda.synchronize()
+        cpu_args = cpu(args)
+        if kind == "level":
+            twice = same_bits(out[:7], again[:7])
+            got = st3.LevelResult(*(x.cpu() for x in out[:7]))
+            want = st3.level_plain(*cpu_args)
+            with sim3_f64_sums():
+                summed = st3.level_plain(*cpu_args)
+            settled = level_gaps(summed, want)[0]
+            ok, pose_gap = level_gaps(got, want)
+            on_card = level_gaps(cpu(st3.level_plain(*args)), want)[0]
+            held = ok[settled]
+            passes = int((got.trials.long() + 1).sum())
+            if settled.any():
+                worst = max(worst, float(pose_gap[settled].max()))
+            log(f"[lm] {name}: trials kernel {got.trials.tolist()} / plain "
+                f"{want.trials.tolist()}, accepted {got.its.tolist()} / "
+                f"{want.its.tolist()}; diverged {int(got.diverged.sum())} / "
+                f"{int(want.diverged.sum())} lanes; max |pose - plain| "
+                f"{float(pose_gap.max()):.3g} (bound {SIM3_POSE_ATOL:g}), "
+                f"error {float(rel(got.last_err, want.last_err).max()):.3g} "
+                f"relative ({SIM3_ERR_RTOL:g}); lanes that settle (the CPU's "
+                f"plain loop summing in f64 within the bounds of the CPU's "
+                f"plain loop) {int(settled.sum())} of {lanes}, the kernel "
+                f"within the bounds on {int(held.sum())} of them "
+                f"({int(ok.sum())} of all; the card's plain loop: "
+                f"{int(on_card.sum())}); second launch bit-equal {twice}")
+            assert twice and bool(held.all()), (name, twice, settled, ok)
+
+            def kernel(args=args):
+                return st3.level(*args)
+
+            def plain(args=args):
+                return st3.level_plain(*args)
+        else:
+            twice = same_bits(out[:8], again[:8])
+            got = cpu(st3.final_pass(*args))
+            want = st3.final_pass_plain(*cpu_args)
+            with sim3_f64_sums():
+                summed = st3.final_pass_plain(*cpu_args)
+            settled = final_ok(final_gaps(summed, want))
+            gaps = final_gaps(got, want)
+            ok = final_ok(gaps)
+            on_card = final_ok(final_gaps(cpu(st3.final_pass_plain(*args)),
+                                          want))
+            held = ok[settled]
+            passes = lanes
+            hess = float(gaps[0][settled].max()) if settled.any() else 0.0
+            rest = (float(gaps[1:, settled].max()) if settled.any()
+                    else 0.0)
+            log(f"[lm] {name}: lanes that settle (the CPU's plain pass "
+                f"summing in f64 within the bounds of the CPU's plain pass) "
+                f"{int(settled.sum())} of {lanes}; on them the largest gap "
+                f"of the kernel: Hessian {hess:.3g} of its largest entry "
+                f"(bound {SIM3_HESS_RTOL:g}), residual means and usage "
+                f"{rest:.3g} relative ({SIM3_ERR_RTOL:g}); within the bounds "
+                f"on {int(ok.sum())} of all (the card's plain pass: "
+                f"{int(on_card.sum())}); second launch bit-equal {twice}")
+            assert twice and bool(held.all()), (name, twice, settled, gaps)
+
+            def kernel(args=args):
+                return st3.final_pass(*args)
+
+            def plain(args=args):
+                return st3.final_pass_plain(*args)
+        chosen = lm_track.choose_cluster(lanes, n_pts, sms, most)
+        chunk, leaves, staged, smem = lm_track.launch_layout(
+            n_pts, chosen, sim3=True)
+        by_c, size = {}, 1
+        while size <= most:
+            by_c[size] = same_bits(sim3_launch(args, kind, size)[:8], out[:8])
+            size *= 2
+        ms = time_gpu(torch, kernel, 10, 5)
+        plain_ms = time_gpu(torch, plain, 1, 3)
+        b_ms, b_by = sim3_bound(args, out, passes)
+        log(f"[lm] {name}: cluster {chosen} chosen (the card's largest "
+            f"{most}); {leaves} chunks of {chunk} points, {staged} points "
+            f"staged, {smem} B of shared memory a block; the same bits at "
+            f"every cluster size: {by_c}; kernel {ms:.4f} ms ({passes} "
+            f"passes), plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}); {card}")
+        assert all(by_c.values()), (name, by_c)
+        n_settled += int(settled.sum())
+        cases.append(dict(stage=c["stage"], direction=c["direction"],
+                          kind=kind, level=lvl, lanes=lanes, points=n_pts,
+                          settled=int(settled.sum()),
+                          cluster=chosen, chunk=chunk, leaves=leaves,
+                          staged=staged, smem_bytes=smem, passes=passes,
+                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by))
+        stage = stages.setdefault(c["stage"], dict(ms=0.0, plain_ms=0.0,
+                                                   bound_ms=0.0, launches=0))
+        stage["ms"] += ms
+        stage["plain_ms"] += plain_ms
+        stage["bound_ms"] += b_ms
+        stage["launches"] += 1
+    # every case held on its settled lanes; the search as a whole settles
+    assert n_settled > 0, "no lane of the search settles"
+    search = {k: sum(st[k] for st in stages.values())
+              for k in ("ms", "plain_ms", "bound_ms", "launches")}
+    by_bytes = sum(c["bound_ms"] for c in cases if c["bound_by"] == "bytes")
+    search["bound_by"] = ("bytes" if 2 * by_bytes >= search["bound_ms"]
+                          else "operations")
+    for k, st in sorted(stages.items()):
+        log(f"[lm] Sim(3) stage {k} ({st['launches']} launches, both "
+            f"directions): kernel {st['ms']:.4f} ms, plain "
+            f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.5f} ms; {card}")
+    log(f"[lm] Sim(3) constraint search ({search['launches']} launches): "
+        f"kernel {search['ms']:.4f} ms, plain {search['plain_ms']:.3f} ms, "
+        f"bound {search['bound_ms']:.5f} ms ({search['bound_by']}); {card}")
+    return dict(cases=cases, stages=stages, search=search,
+                max_abs_err=worst)
 
 
 # ---- the order-fixed scatter-sum, the sparse PGO, the appearance index,
@@ -2912,6 +3385,8 @@ def multihost_phase(card, frames, calib, root, want_kfs, want_edges,
         ORDER_LAUNCHES[f"multihost-rank{r}"] = c["segment_order"]
         LM_LAUNCHES[f"multihost-rank{r}"] = c["lm"]
         LM_CLUSTERS[f"multihost-rank{r}"] = c["lm_clusters"]
+        SIM3_LAUNCHES[f"multihost-rank{r}"] = c["sim3"]
+        SIM3_CLUSTERS[f"multihost-rank{r}"] = c["sim3_clusters"]
     assert r0["lm"] > 0, r0
     return r0["fused"]
 
@@ -3108,14 +3583,30 @@ def warmup_run(mode: str) -> int:
     if mode == "with":
         stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
-        lm_track.LAUNCHES = 0
+        lm_track.LAUNCHES = lm_track.SIM3_LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
-        out["warmup"] = warmup(cam, cfg)
+        lm_track.SIM3_CLUSTER_SIZES.clear()
+        seen = []
+        finalize = SlamSystem.finalize
+
+        def finalize_seen(sys_):
+            seen.append(sys_)
+            return finalize(sys_)
+        SlamSystem.finalize = finalize_seen
+        try:
+            out["warmup"] = warmup(cam, cfg)
+        finally:
+            SlamSystem.finalize = finalize
+        st = seen[0].stats.snapshot()
+        out["warmup_sim3_syncs"] = st.get("sim3_syncs", 0)
+        out["warmup_searches"] = st.get("sim3_stage0_n", 0)
         out["warmup_fused"] = stencil.FUSED_LAUNCHES
         out["warmup_segment_sum"] = scatter.LAUNCHES
         out["warmup_segment_order"] = scatter.ORDER_LAUNCHES
         out["warmup_lm"] = lm_track.LAUNCHES
         out["warmup_lm_clusters"] = dict(lm_track.CLUSTER_SIZES)
+        out["warmup_sim3"] = lm_track.SIM3_LAUNCHES
+        out["warmup_sim3_clusters"] = dict(lm_track.SIM3_CLUSTER_SIZES)
     t0 = time.perf_counter()
     sys_ = SlamSystem(cam, cfg)
     sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
@@ -3154,17 +3645,22 @@ def warmup_phase(card):
         f"{[round(x, 1) for x in got['without']['frame_ms']]} ms; after "
         f"warmup(cam, cfg) ({w['warmup']}, {w['warmup_fused']} fused and "
         f"{w['warmup_segment_sum']} segment_sum, "
-        f"{w['warmup_segment_order']} segment_order and {w['warmup_lm']} "
-        f"lm_level launches) gt_depth_init "
+        f"{w['warmup_segment_order']} segment_order, {w['warmup_lm']} "
+        f"lm_level and {w['warmup_sim3']} sim3_level launches) gt_depth_init "
         f"{w['init_ms']:.1f} ms, first frame steps "
         f"{[round(x, 1) for x in w['frame_ms']]} ms; {card}")
     assert w["warmup"]["keyframes"] >= 2 and w["warmup"]["reloc_warmed"]
     assert w["warmup_fused"] > 0 and w["warmup_segment_sum"] > 0
     assert w["warmup_segment_order"] > 0 and w["warmup_lm"] > 0
+    # its constraint searches ran on the kernel and pulled no Sim(3) flag
+    assert w["warmup_searches"] > 0 and w["warmup_sim3_syncs"] == 0, w
+    assert w["warmup_sim3"] >= 6 * w["warmup_searches"], w
     SEGMENT_LAUNCHES["warmup"] = w["warmup_segment_sum"]
     ORDER_LAUNCHES["warmup"] = w["warmup_segment_order"]
     LM_LAUNCHES["warmup"] = w["warmup_lm"]
     LM_CLUSTERS["warmup"] = w["warmup_lm_clusters"]
+    SIM3_LAUNCHES["warmup"] = w["warmup_sim3"]
+    SIM3_CLUSTERS["warmup"] = w["warmup_sim3_clusters"]
     return w["warmup_fused"]
 
 
@@ -3293,37 +3789,46 @@ def pipeline_turns(torch, card):
 
 
 @contextlib.contextmanager
-def lm_route(plain: bool):
-    """Inside, with `plain`, the trackers' LM loops run the plain version
-    on the card as well (`tracking.lm.level_plain`: one flag pull per
-    trial, the host loop's kind the port ran before the kernel) instead
-    of the kernel; for `--lm-turns` only."""
+def lm_route(route: str):
+    """Inside, the trackers' LM loops run as `route` says: "kernel" (the
+    engine's own), "plain" (every LM loop on its plain version on the card
+    as well: `tracking.lm.level_plain` and the Sim(3) tracker's
+    `level_plain` / `final_pass_plain`, one flag pull per trial, the host
+    loops the port ran before the kernels) or "sim3-plain" (only the
+    Sim(3) loop so: the port before this kernel); for `--lm-turns` only."""
     from lsd_slam_tpu_torch.tracking import lm
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
 
-    real = lm.level
-    if plain:
+    real = lm.level, st3.level, st3.final_pass
+    if route == "plain":
         lm.level = lm.level_plain
+    if route in ("plain", "sim3-plain"):
+        st3.level, st3.final_pass = st3.level_plain, st3.final_pass_plain
     try:
         yield
     finally:
-        lm.level = real
+        lm.level, st3.level, st3.final_pass = real
 
 
 def lm_turns(torch, card):
     """`chip_smoke.py --lm-turns`: [vo]'s sequence, [slam]'s (lag 0, each
     frame synchronised) and [slam-pipelined]'s (lag 3) with the LM loops
-    on the kernel and on the plain loop, in turns (kernel, plain, plain,
-    kernel), on one card in one call: frames per second, p50 / p95 frame
-    ms, the track stage's median (dispatch window), host syncs and LM
-    trial flags per frame, keyframes."""
+    on the kernels, with only the Sim(3) loop on its plain version, and
+    with every LM loop on its plain version (SE(3), quick and Sim(3)), in
+    turns (kernel, sim3-plain, plain, plain, sim3-plain, kernel), on one
+    card in one call: frames
+    per second, p50 / p95 frame ms, the track stage's median (dispatch
+    window), the switch frames' median, the constraint search per new
+    keyframe, host syncs and LM trial flags per frame, keyframes."""
     with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
                            "vo_orbit_640x480.json")) as f:
         vo_ref = json.load(f)
     runs = (("slam", load_ref(SLAM_RUNS["slam"][0]), True),
             ("slam-pipelined", load_ref(SLAM_RUNS["slam-pipelined"][0]),
              False))
-    for route in ("kernel", "plain", "plain", "kernel"):
-        with lm_route(route == "plain"):
+    for route in ("kernel", "sim3-plain", "plain", "plain", "sim3-plain",
+                  "kernel"):
+        with lm_route(route):
             sys_, _, fms, _ = run_vo(torch, vo_ref, profile=False)
             st = sys_.stats.snapshot()
             steady = fms[1:]
@@ -3340,14 +3845,22 @@ def lm_turns(torch, card):
                 st = run.sys.stats.snapshot()
                 n = ref["n_frames"]
                 frames = len(run.sys.all_frame_poses) + 1
+                searches = max(int(st.get("sim3_stage0_n", 0)), 1)
+                search_ms = sum(st.get(f"sim3_stage{k}_ms", 0.0)
+                                for k in range(3)) / searches
+                sw = run.fms[run.sw]
                 log(f"[lm-turns] {route} [{tag}]: "
                     f"{(n - 1) / run.track_s:.3f} fps, p50 "
                     f"{np.percentile(run.fms, 50):.3f} ms, p95 "
                     f"{np.percentile(run.fms, 95):.3f} ms, track "
-                    f"{run.sys.timers.median('track'):.2f} ms; syncs per "
+                    f"{run.sys.timers.median('track'):.2f} ms, switch frames "
+                    f"median {np.median(sw) if len(sw) else float('nan'):.1f}"
+                    f" ms, constraint search {search_ms:.1f} ms per new "
+                    f"keyframe; syncs per "
                     f"frame {sum(st.get(k, 0) for k in SYNC_KEYS) / frames:.2f}"
                     f", SE3 LM flags {st.get('lm_syncs', 0):.0f}, quick LM "
-                    f"flags {st.get('quick_syncs', 0):.0f}; keyframes "
+                    f"flags {st.get('quick_syncs', 0):.0f}, Sim3 LM flags "
+                    f"{st.get('sim3_syncs', 0):.0f}; keyframes "
                     f"{[kf.id for kf in run.sys.keyframes]}; {card}")
 
 
@@ -3367,8 +3880,8 @@ def main() -> int:
     ap.add_argument("--pipeline-turns", action="store_true",
                     help="only time lag 0 against lag 3, in turns")
     ap.add_argument("--lm-turns", action="store_true",
-                    help="only time the LM kernel against the plain LM "
-                    "loop on [vo] and [slam]'s sequences, in turns")
+                    help="only time the LM kernels against the plain LM "
+                    "loops on [vo] and [slam]'s sequences, in turns")
     ap.add_argument("--lm-only", action="store_true",
                     help="only [vo] (its level inputs recorded) and [lm] "
                     "(one short call)")
@@ -3462,6 +3975,7 @@ def main() -> int:
         with recorded_lm_inputs() as vo_levels:
             run_vo(torch, ref, profile=False)
         lm_phase(torch, card, vo_levels, lm_base)
+        sim3_phase(torch, card)
         return 0
     baseline = walk = None
     if "segment_sum_walk" in extra:
@@ -3604,6 +4118,7 @@ def main() -> int:
 
     # ---- 19. the LM level kernel against its plain version ----
     lm_row = lm_phase(torch, card, vo_levels, lm_base)
+    sim3_row = sim3_phase(torch, card)
     phase_done("lm")
 
     # ---- 5. SLAM at full width ----
@@ -3668,6 +4183,8 @@ def main() -> int:
 
     log(f"[lm] lm_level launches by cluster size, per path: "
         f"{json.dumps(LM_CLUSTERS)}")
+    log(f"[lm] sim3_level launches by cluster size, per path: "
+        f"{json.dumps(SIM3_CLUSTERS)}")
     prop = seg_t["propagate-640x480"]
     seg_common = dict(
         source="lsd_slam_tpu_torch/csrc/segment_sum.cu",
@@ -3757,6 +4274,26 @@ def main() -> int:
              library_note="no single PyTorch call runs an LM loop",
              levels=lm_row["levels"], quick=lm_row["quick"],
              path_clusters=LM_CLUSTERS),
+        dict(name="sim3_level", route="cuda",
+             source="lsd_slam_tpu_torch/csrc/sim3_track.cu",
+             replaces="lsd_slam_tpu/tracking/sim3_tracker.py:265-314 (the "
+                      "XLA while_loop of _sim3_impl; no Pallas "
+                      "counterpart)",
+             also_replaces=["lsd_slam_tpu/tracking/sim3_tracker.py:61-209",
+                            "lsd_slam_tpu/tracking/sim3_tracker.py:321-350"],
+             launches=sum(SIM3_LAUNCHES.values()),
+             path_launches=SIM3_LAUNCHES,
+             max_abs_err=sim3_row["max_abs_err"],
+             shape="[slam]'s first three-stage constraint search at "
+                   "640x480: every level and final pass, both directions",
+             ms=sim3_row["search"]["ms"],
+             plain_ms=sim3_row["search"]["plain_ms"],
+             bound_ms=sim3_row["search"]["bound_ms"],
+             bound_by=sim3_row["search"]["bound_by"],
+             library_ms=None,
+             library_note="no single PyTorch call runs an LM loop",
+             stages=sim3_row["stages"], cases=sim3_row["cases"],
+             path_clusters=SIM3_CLUSTERS),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -20,6 +20,16 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# On the CPU, torch computes sqrt, exp, sin, cos, log ... of float tensors
+# with MKL's vector math, which sets up its code path in its first call in
+# the process. When ATen splits that first call over OpenMP threads, the
+# threads that enter while the set-up runs were seen to compute their
+# share to other last bits, and which ones do depends on timing: under
+# load a CPU run of the port then leaves its bits from that call on (a
+# 160x128 SLAM scenario: frame 0's gradient magnitude). One call small
+# enough to stay on this thread makes the set-up happen first.
+torch.sqrt(torch.ones(16))
+
 __version__ = "0.1.0"
 
 from lsd_slam_tpu_torch.config import LSDConfig  # noqa: E402,F401

@@ -28,6 +28,7 @@ SOURCES = {
     "regularize_stencil": "regularize_stencil.cu",
     "segment_sum": "segment_sum.cu",
     "lm_track": "lm_track.cu",
+    "sim3_track": "sim3_track.cu",
 }
 
 # -fmad=false: the kernels must round like the JAX lattice, which never

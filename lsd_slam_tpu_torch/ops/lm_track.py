@@ -1,6 +1,6 @@
-"""The trackers' LM level loop on the card: the CUDA kernel's wrapper.
+"""The trackers' LM level loops on the card: the CUDA kernels' wrappers.
 
-Replaces the XLA `lax.while_loop` programs `_track_level`
+`lm_level` replaces the XLA `lax.while_loop` programs `_track_level`
 (lsd_slam_tpu/tracking/se3_tracker.py:184-253) and `_quick_impl`'s loop
 (lsd_slam_tpu/tracking/quick_tracker.py:66-104). The kernel is
 `csrc/lm_track.cu` (see its header for the design and the bound): one
@@ -9,6 +9,13 @@ track pulls nothing to the host. Its plain version is `tracking/lm.py`
 `level_plain`; `tracking.lm.level` sends CPU tensors there and CUDA
 tensors here, and this wrapper launches the kernel or raises: it never
 falls back.
+
+`sim3_level` does the same for the Sim(3) tracker's loop
+(lsd_slam_tpu/tracking/sim3_tracker.py:265-314) with the kernel
+`csrc/sim3_track.cu`, of the same design; with no trials it is the
+tracker's final pass. Its plain versions are `tracking/sim3_tracker.py`
+`level_plain` and `final_pass_plain`, and `level` / `final_pass` there
+route as `tracking.lm.level` does.
 
 The launch's shape is pure functions of the inputs and the card, tested
 on the CPU: `tree_layout` cuts a lane's points into the sum tree's
@@ -23,9 +30,9 @@ schedule's constants as a mapping) and returns tensors; `tracking.lm`
 builds its `LevelResult` from them, so this layer knows nothing of the
 trackers.
 
-`LAUNCHES` counts kernel launches and `CLUSTER_SIZES` the launches by
-C; the engine's worker threads launch too, so both are bumped under a
-lock.
+`LAUNCHES` counts `lm_level` launches and `CLUSTER_SIZES` the launches
+by C, `SIM3_LAUNCHES` and `SIM3_CLUSTER_SIZES` those of `sim3_level`; the
+engine's worker threads launch too, so all are bumped under a lock.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from lsd_slam_tpu_torch.config import TrackerConfig
 # cluster size (clear it with LAUNCHES)
 LAUNCHES = 0
 CLUSTER_SIZES = collections.Counter()
+SIM3_LAUNCHES = 0
+SIM3_CLUSTER_SIZES = collections.Counter()
 _COUNT_LOCK = threading.Lock()
 
 # the sum tree: chunks of consecutive points, a warp each; one point a lane
@@ -63,6 +72,16 @@ TILE_BYTES = 16 * 32 * 33 * 4
 STAGE_POINT_BYTES = 17
 STAGE_BYTES = 140 * 1024
 STAGE_CAP = STAGE_BYTES // STAGE_POINT_BYTES
+# sim3_level: tiles of 32 x 43 f32 terms (8 warps), then 25 B a staged
+# point (int32 index, five f32, the valid byte), within the 227 KB a block
+# may have beside its ~6 KB of static shared memory
+SIM3_TILE_BYTES = 8 * 32 * 43 * 4
+SIM3_STAGE_POINT_BYTES = 25
+SIM3_STAGE_BYTES = 160 * 1024
+SIM3_STAGE_CAP = SIM3_STAGE_BYTES // SIM3_STAGE_POINT_BYTES
+# the per-lane values a final pass returns: the coupled, depth and
+# photometric mean residuals, the usage sum and A (7 x 7)
+SIM3_FINAL = 4 + 49
 
 
 class Params(ctypes.Structure):
@@ -120,41 +139,50 @@ def choose_cluster(lanes: int, n_points: int, sm_count: int,
     return c
 
 
-def launch_layout(n_points: int, cluster: int):
+def launch_layout(n_points: int, cluster: int, sim3: bool = False):
     """(chunk, leaves, staged, smem) of a launch at cluster size C: the
     tree padded to max(leaves, C) zero chunks, the points a block stages
-    (its share, at most STAGE_CAP) and its dynamic shared memory bytes
-    (the warps' tiles and the staged points)."""
+    (its share, at most STAGE_CAP, or SIM3_STAGE_CAP for `sim3_level`) and
+    its dynamic shared memory bytes (the warps' tiles and the staged
+    points)."""
     leaves, chunk = tree_layout(n_points)
     leaves = max(leaves, cluster)
     share = min(leaves // cluster * chunk, n_points)
-    staged = min(share, STAGE_CAP)
-    return chunk, leaves, staged, TILE_BYTES + _stage_bytes(staged)
+    staged = min(share, SIM3_STAGE_CAP if sim3 else STAGE_CAP)
+    tiles = SIM3_TILE_BYTES if sim3 else TILE_BYTES
+    return chunk, leaves, staged, tiles + _stage_bytes(staged, sim3)
 
 
-def _stage_bytes(staged: int) -> int:
-    return -(-staged * STAGE_POINT_BYTES // 16) * 16
+def _stage_bytes(staged: int, sim3: bool = False) -> int:
+    per = SIM3_STAGE_POINT_BYTES if sim3 else STAGE_POINT_BYTES
+    return -(-staged * per // 16) * 16
 
 
 _MAX_CLUSTER = {}
 
 
-def max_cluster(device: torch.device) -> int:
+def max_cluster(device: torch.device, sim3: bool = False) -> int:
     """The largest power-of-two cluster (up to CLUSTER_MAX) of which the
-    card holds one at the largest staging size, asked of the card once per
-    device."""
+    card holds one at the largest staging size of `lm_level` (or of
+    `sim3_level`), asked of the card once per device and kernel."""
     dev = torch.device(device).index
     dev = torch.cuda.current_device() if dev is None else dev
-    got = _MAX_CLUSTER.get(dev)
+    got = _MAX_CLUSTER.get((dev, sim3))
     if got is None:
         with torch.cuda.device(dev):
-            fn = _library().lsd_lm_max_cluster
+            if sim3:
+                fn = _library("sim3_track").lsd_sim3_max_cluster
+                smem = SIM3_TILE_BYTES + _stage_bytes(SIM3_STAGE_CAP, True)
+            else:
+                fn = _library().lsd_lm_max_cluster
+                smem = TILE_BYTES + _stage_bytes(STAGE_CAP)
             fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
-            got = fn(TILE_BYTES + _stage_bytes(STAGE_CAP))
+            got = fn(smem)
         if got < 1:
-            raise RuntimeError(f"lm_level: the card schedules no cluster "
+            name = "sim3_level" if sim3 else "lm_level"
+            raise RuntimeError(f"{name}: the card schedules no cluster "
                                f"of this kernel (cudaError {-got})")
-        _MAX_CLUSTER[dev] = got
+        _MAX_CLUSTER[(dev, sim3)] = got
     return got
 
 
@@ -190,9 +218,9 @@ _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _library():
+def _library(name: str = "lm_track"):
     from lsd_slam_tpu_torch.ops.build import load
-    return load("lm_track")
+    return load(name)
 
 
 def _entry():
@@ -338,3 +366,191 @@ def lm_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor], frame_quad,
     return (out_pose.reshape(pose.shape), out_a.reshape(lead),
             out_b.reshape(lead), out_err.reshape(lead), out_div.reshape(lead),
             out_trials.reshape(lead), out_its.reshape(lead))
+
+
+class Sim3Params(ctypes.Structure):
+    """`sim3_level`'s by-value constants (`LsdSim3Params` in
+    csrc/sim3_track.cu)."""
+
+    _fields_ = [
+        ("pts_stride", ctypes.c_longlong), ("quad_stride", ctypes.c_longlong),
+        ("pts_step", ctypes.c_longlong),
+        ("n_points", ctypes.c_int), ("quad_rows", ctypes.c_int),
+        ("w", ctypes.c_int), ("h", ctypes.c_int),
+        ("fx", ctypes.c_float), ("fy", ctypes.c_float),
+        ("cx", ctypes.c_float), ("cy", ctypes.c_float),
+        ("fx_half", ctypes.c_float), ("fy_half", ctypes.c_float),
+        ("u_hi", ctypes.c_float), ("v_hi", ctypes.c_float),
+        ("var_weight", ctypes.c_float), ("sigma2", ctypes.c_float),
+        ("huber_d", ctypes.c_float), ("min_points", ctypes.c_float),
+        ("conv_eps", ctypes.c_float), ("step_min", ctypes.c_float),
+        ("lam0", ctypes.c_float), ("success_fac", ctypes.c_float),
+        ("fail_fac", ctypes.c_float),
+        ("max_its", ctypes.c_int), ("max_trials", ctypes.c_int),
+        ("use_esm", ctypes.c_int),
+        ("chunk", ctypes.c_int), ("leaves", ctypes.c_int),
+        ("staged", ctypes.c_int),
+    ]
+
+
+def make_sim3_params(cam: Camera, cfg: TrackerConfig, sigma2: float,
+                     min_points: float, max_its: int, max_trials: int,
+                     n_points: int, quad_rows: int, pts_stride: int,
+                     pts_step: int, quad_stride: int, cluster: int = 1
+                     ) -> Sim3Params:
+    """The constants of one `sim3_level` launch; each float is the f32 the
+    plain version's torch op uses for the same Python constant (the
+    schedule's from `cfg`, as tracking/sim3_tracker.py `level_plain` reads
+    them)."""
+    h, w = cam.height, cam.width
+    chunk, leaves, staged, _ = launch_layout(n_points, cluster, sim3=True)
+    return Sim3Params(
+        pts_stride=pts_stride, quad_stride=quad_stride, pts_step=pts_step,
+        n_points=n_points, quad_rows=quad_rows, w=w, h=h,
+        fx=_f32(cam.fx), fy=_f32(cam.fy), cx=_f32(cam.cx), cy=_f32(cam.cy),
+        fx_half=_f32(cam.fx * 0.5), fy_half=_f32(cam.fy * 0.5),
+        u_hi=_f32(w - 1.001), v_hi=_f32(h - 1.001),
+        var_weight=_f32(cfg.var_weight), sigma2=_f32(sigma2),
+        huber_d=_f32(cfg.huber_d), min_points=_f32(min_points),
+        conv_eps=_f32(cfg.convergence_eps), step_min=_f32(cfg.step_size_min),
+        lam0=_f32(cfg.lambda_initial), success_fac=_f32(cfg.lambda_success_fac),
+        fail_fac=_f32(cfg.lambda_fail_fac), max_its=int(max_its),
+        max_trials=int(max_trials), use_esm=int(bool(cfg.use_esm_sim3)),
+        chunk=chunk, leaves=leaves, staged=staged)
+
+
+_SIM3_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _sim3_entry():
+    fn = _library("sim3_track").lsd_sim3_level
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = _SIM3_ARGTYPES
+    return fn
+
+
+SIM3_POINT_FIELDS = ("idx", "ival", "gx", "gy", "idp", "ivr", "valid")
+_SIM3_POINT_DTYPES = (torch.int64,) + (torch.float32,) * 5 + (torch.bool,)
+
+
+def _sim3_points(points: Sequence[torch.Tensor], lanes: int):
+    """The point fields as the kernel reads them: (tensors, lane stride,
+    point step, point count), every field (N,) shared or (B, N) per lane,
+    in elements; fields that do not share one layout are made
+    contiguous."""
+    if len(points) != len(SIM3_POINT_FIELDS):
+        raise ValueError(f"sim3_level: {len(points)} point fields, expected "
+                         f"{SIM3_POINT_FIELDS}")
+    for name, dtype, t in zip(SIM3_POINT_FIELDS, _SIM3_POINT_DTYPES, points):
+        if t.dtype != dtype:
+            raise TypeError(f"sim3_level: {name} must be {dtype}, got "
+                            f"{t.dtype}")
+        if not (t.dim() == 1 or (t.dim() == 2 and t.shape[0] == lanes)):
+            raise ValueError(f"sim3_level: {name} of shape "
+                             f"{tuple(t.shape)} is neither shared nor one "
+                             f"per lane of {lanes}")
+        if t.shape != points[0].shape:
+            raise ValueError(f"sim3_level: {name} {tuple(t.shape)} does not "
+                             f"match idx {tuple(points[0].shape)}")
+    fields = list(points)
+    if len({t.stride() for t in fields}) != 1 or fields[0].stride(-1) < 1:
+        fields = [t.contiguous() for t in fields]
+    t = fields[0]
+    lane_stride = t.stride(0) if t.dim() == 2 else 0
+    return fields, lane_stride, t.stride(-1), t.shape[-1]
+
+
+def sim3_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor],
+               frame_quad, cam: Camera, cfg: TrackerConfig, sigma2: float,
+               min_points: float, max_its: int, max_trials: int,
+               final: bool = False, cluster: int = None):
+    """One launch of the Sim(3) level loop for the lanes of `pose` ((B, 8)
+    f32 on a CUDA device), the affine pair (B,) f32; `points` the point
+    fields (SIM3_POINT_FIELDS), each (N,) shared or (B, N), strided or
+    not; the quad layout (H*W, 20) shared or (B, H*W, 20); `cam` the
+    level's camera, `cfg` the tracker's constants, `min_points` the
+    in-image count below which the level diverges, the loop's
+    `max_its` / `max_trials` (0 and 0: the one pass of the final Hessian).
+    Returns (pose, aff_a, aff_b, last_err, diverged, trials, its, final)
+    with `final` None, or with `final=True` (B, SIM3_FINAL): the accepted
+    pass's coupled, depth and photometric mean residuals, its usage sum and
+    its A (7 x 7, symmetric). `cluster` forces the blocks per lane (a power
+    of two up to the card's `max_cluster(..., sim3=True)`), for
+    measurement only."""
+    global SIM3_LAUNCHES
+    dev = pose.device
+    if dev.type != "cuda":
+        raise ValueError(f"sim3_level: unsupported device {dev}")
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return sim3_level(pose, aff_a, aff_b, points, frame_quad, cam,
+                              cfg, sigma2, min_points, max_its, max_trials,
+                              final, cluster)
+    if pose.dtype != torch.float32 or pose.dim() != 2 or pose.shape[-1] != 8:
+        raise ValueError(f"sim3_level: pose must be f32 (B, 8), got "
+                         f"{pose.dtype} {tuple(pose.shape)}")
+    pose = pose.contiguous()
+    lanes = pose.shape[0]
+    a_in, b_in = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                  .reshape(-1).expand(lanes).contiguous()
+                  for x in (aff_a, aff_b))
+    fields, pstride, pstep, n_points = _sim3_points(points, lanes)
+    quad = frame_quad
+    if quad.dtype != torch.float32:
+        raise TypeError(f"sim3_level: frame_quad must be f32, got "
+                        f"{quad.dtype}")
+    if quad.dim() not in (2, 3) or quad.shape[-1] != 20 or (
+            quad.dim() == 3 and quad.shape[0] != lanes):
+        raise ValueError(f"sim3_level: frame_quad of shape "
+                         f"{tuple(quad.shape)} is neither one (H*W, 20) "
+                         f"layout nor one per lane of {lanes}")
+    quad = quad.contiguous()
+    qstride = quad[0].numel() if quad.dim() == 3 else 0
+    if quad.data_ptr() % 16:
+        raise ValueError("sim3_level: the quad layout must start on a "
+                         "16-byte boundary (the kernel reads rows as float4)")
+    quad_rows = quad.shape[-2]
+    if quad_rows * 20 >= 2 ** 31 or cam.width * cam.height >= 2 ** 31:
+        raise ValueError("sim3_level: image too large for 32-bit indices")
+    for t in fields + [quad, a_in, b_in]:
+        if t.device != dev:
+            raise ValueError(f"sim3_level: a tensor on {t.device}, pose on "
+                             f"{dev}")
+
+    most = max_cluster(dev, sim3=True)
+    if cluster is None:
+        cluster = choose_cluster(lanes, n_points,
+                                 torch.cuda.get_device_properties(
+                                     dev).multi_processor_count, most)
+    elif cluster < 1 or cluster & (cluster - 1) or cluster > most:
+        raise ValueError(f"sim3_level: cluster {cluster} is not a power of "
+                         f"two up to {most}")
+    prm = make_sim3_params(cam, cfg, sigma2, min_points, max_its, max_trials,
+                           n_points, quad_rows, pstride, pstep, qstride,
+                           cluster)
+    smem = launch_layout(n_points, cluster, sim3=True)[3]
+    out_pose = torch.empty_like(pose)
+    out_a = torch.empty(lanes, dtype=torch.float32, device=dev)
+    out_b = torch.empty_like(out_a)
+    out_err = torch.empty_like(out_a)
+    out_div = torch.empty(lanes, dtype=torch.bool, device=dev)
+    out_trials = torch.empty(lanes, dtype=torch.int32, device=dev)
+    out_its = torch.empty_like(out_trials)
+    out_final = (torch.empty(lanes, SIM3_FINAL, dtype=torch.float32,
+                             device=dev) if final else None)
+    rc = _sim3_entry()(
+        *(t.data_ptr() for t in fields), quad.data_ptr(), pose.data_ptr(),
+        a_in.data_ptr(), b_in.data_ptr(), out_pose.data_ptr(),
+        out_a.data_ptr(), out_b.data_ptr(), out_err.data_ptr(),
+        out_div.data_ptr(), out_trials.data_ptr(), out_its.data_ptr(),
+        0 if out_final is None else out_final.data_ptr(), lanes, cluster,
+        smem, ctypes.byref(prm), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sim3_level kernel launch failed: cudaError {rc}")
+    with _COUNT_LOCK:
+        SIM3_LAUNCHES += 1
+        SIM3_CLUSTER_SIZES[cluster] += 1
+    return (out_pose, out_a, out_b, out_err, out_div, out_trials, out_its,
+            out_final)

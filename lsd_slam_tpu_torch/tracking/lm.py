@@ -81,6 +81,9 @@ def quick_schedule(cfg: TrackerConfig) -> Schedule:
 
 @dataclass
 class LevelResult:
+    """One level's loop result; the Sim(3) tracker's `level` returns it
+    too, with (B, 8) Sim3 poses and tensor affine pairs."""
+
     pose: torch.Tensor        # (..., 7) SE3 ref -> frame
     aff_a: object             # (...) tensor, or the float given
     aff_b: object

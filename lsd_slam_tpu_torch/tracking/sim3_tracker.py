@@ -10,12 +10,17 @@ gradients (Sim3Tracker.cpp:451-507); a coupled Huber weight over
 LGS6(photo) + LGS4(depth, dims {2,3,4,6}); LM over Sim3::exp; the 7x7
 Hessian at the converged pose as the constraint's information matrix.
 
-Every entry runs the batched loop (see tracking/quick_tracker.py): one
-lane per candidate, lanes that are done keep their state, one host read of
-"any lane active" per trial (`Sim3TrackResult.n_syncs`). Either side may
-be stacked: reference point sets (B, N) against one target layout, or one
-reference against stacked target layouts (B, H*W, 20). The packed entries
-return one (B, 70) tensor in the `SIM3_PACK` layout.
+Every entry runs the batched loop, one lane per candidate, a level at a
+time through `level`: on the card the kernel `sim3_level`
+(ops/lm_track.py, csrc/sim3_track.cu) runs every trial of a level in one
+launch and pulls nothing to the host, and one more launch with no trials
+is the final pass (`final_pass`); on the CPU `level_plain` and
+`final_pass_plain` run them in torch ops (lanes that are done keep their
+state, one host read of "any lane active" per trial, counted in
+`Sim3TrackResult.n_syncs`). Either side may be stacked: reference point
+sets (B, N) against one target layout, or one reference against stacked
+target layouts (B, H*W, 20). The packed entries return one (B, 70) tensor
+in the `SIM3_PACK` layout.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from lsd_slam_tpu_torch import lie
 from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import TrackerConfig
 from lsd_slam_tpu_torch.ops.interp import quad_sample, quad_nearest
+from lsd_slam_tpu_torch.tracking.lm import LevelResult
 from lsd_slam_tpu_torch.tracking.reference import TrackingRef, PointSet
 from lsd_slam_tpu_torch.tracking.se3_tracker import _col
 
@@ -241,6 +247,138 @@ def _strided(pts: PointSet, stride: int) -> PointSet:
                                        for f in _POINT_FIELDS})
 
 
+def level_plain(pose, aff_a, aff_b, pts: PointSet, frame_quad, cam: Camera,
+                cfg: TrackerConfig, sigma2: float, min_pts: float,
+                max_its: int) -> LevelResult:
+    """One level's LM loop of B lanes in torch ops (the JAX `while_loop`
+    of `_sim3_impl`, lsd_slam_tpu/tracking/sim3_tracker.py:265-314): every
+    lane's state is a tensor updated with `torch.where`, so a lane that is
+    done keeps its state while the batch runs on, and one host read of
+    "any lane active" per trial (`n_syncs`). `cam` is the level's camera,
+    `pts` its (strided) points, `min_pts` the in-image count below which
+    the level diverges."""
+    dev = pose.device
+    b = pose.shape[0]
+    f32 = torch.float32
+    eye7 = 1e-12 * torch.eye(7, dtype=f32, device=dev)
+    max_trials = max_its + 4 * cfg.max_lm_rejects
+    syncs = 0
+
+    def res_pass(p, a, b_):
+        return _sim3_residual_pass(p, a, b_, pts, frame_quad, cam, cfg,
+                                   cfg.use_esm_sim3)
+
+    buffers, stats = res_pass(pose, aff_a, aff_b)
+    div0 = stats["in_count"] < min_pts
+    aff_a, aff_b = stats["aff_a_new"], stats["aff_b_new"]
+    wp, wd, last_err, _, _ = _sim3_weights(pose, buffers, cfg, sigma2)
+    A, g, n = _sim3_normal_equations(buffers, wp, wd)
+    lam = torch.full((b,), cfg.lambda_initial, dtype=f32, device=dev)
+    it = torch.zeros(b, dtype=torch.int32, device=dev)
+    inc_try = torch.zeros(b, dtype=torch.int32, device=dev)
+    trials = torch.zeros(b, dtype=torch.int32, device=dev)
+    done = div0.clone()
+    div_l = div0.clone()
+
+    while True:
+        active = (it < max_its) & ~done & (trials < max_trials)
+        syncs += 1
+        if not bool(active.any()):
+            break
+        An = A / n[:, None, None]
+        gn = g / n[:, None]
+        An = An + lam[:, None, None] * torch.diag_embed(
+            torch.diagonal(An, dim1=-2, dim2=-1))
+        inc = torch.linalg.solve_ex(An + eye7, gn.unsqueeze(-1),
+                                    check_errors=False)[0].squeeze(-1)
+        inc_sq = torch.sum(inc * inc, dim=-1)
+        blown = ~((inc_sq >= 0) & (inc_sq < 1.0))
+
+        new_pose = lie.sim3_mul(lie.sim3_exp(inc), pose)
+        buffers, stats = res_pass(new_pose, aff_a, aff_b)
+        div = (stats["in_count"] < min_pts) | blown
+        wp, wd, err, _, _ = _sim3_weights(new_pose, buffers, cfg, sigma2)
+        A_new, g_new, n_new = _sim3_normal_equations(buffers, wp, wd)
+
+        accept = (err < last_err) & ~div
+        lam_acc = torch.where(lam <= 0.2, torch.zeros_like(lam),
+                              lam * cfg.lambda_success_fac)
+        lam_rej = torch.where(
+            lam == 0.0, torch.full_like(lam, 0.2),
+            lam * torch.pow(torch.full_like(lam, cfg.lambda_fail_fac),
+                            (inc_try + 1).to(f32)))
+        converged = (err / torch.clamp_min(last_err, 1e-12)
+                     > cfg.convergence_eps)
+        step_small = inc_sq < cfg.step_size_min
+
+        take = active & accept
+        pose = torch.where(take[:, None], new_pose, pose)
+        aff_a = torch.where(take, stats["aff_a_new"], aff_a)
+        aff_b = torch.where(take, stats["aff_b_new"], aff_b)
+        A = torch.where(take[:, None, None], A_new, A)
+        g = torch.where(take[:, None], g_new, g)
+        n = torch.where(take, n_new, n)
+        last_err = torch.where(take, err, last_err)
+        lam = torch.where(active, torch.where(accept, lam_acc, lam_rej),
+                          lam)
+        it = it + take.to(torch.int32)
+        inc_try = torch.where(active, torch.where(
+            accept, torch.zeros_like(inc_try), inc_try + 1), inc_try)
+        trials = trials + active.to(torch.int32)
+        done = done | (active & (div | (accept & converged)
+                                 | (~accept & step_small)))
+        div_l = div_l | (active & div)
+    return LevelResult(pose, aff_a, aff_b, last_err, div_l, trials, it,
+                       syncs)
+
+
+def level(pose, aff_a, aff_b, pts: PointSet, frame_quad, cam: Camera,
+          cfg: TrackerConfig, sigma2: float, min_pts: float,
+          max_its: int) -> LevelResult:
+    """One level's LM loop: the kernel `sim3_level` for CUDA tensors
+    (ops/lm_track.py, csrc/sim3_track.cu: the whole loop on the device, no
+    host pull), the plain version for CPU ones (anything else raises)."""
+    if pose.device.type == "cpu":
+        return level_plain(pose, aff_a, aff_b, pts, frame_quad, cam, cfg,
+                           sigma2, min_pts, max_its)
+    from lsd_slam_tpu_torch.ops import lm_track
+    out = lm_track.sim3_level(
+        pose, aff_a, aff_b, tuple(getattr(pts, f) for f in _POINT_FIELDS),
+        frame_quad, cam, cfg, sigma2, min_pts, max_its,
+        max_its + 4 * cfg.max_lm_rejects)
+    return LevelResult(*out[:7], n_syncs=0)
+
+
+def final_pass_plain(pose, aff_a, aff_b, pts: PointSet, frame_quad,
+                     cam: Camera, cfg: TrackerConfig, sigma2: float):
+    """One pass at the converged pose (Sim3Tracker.cpp:354-363): (A (B, 7,
+    7) made symmetric, the coupled mean residual, the depth and the
+    photometric means, the usage sum), in torch ops."""
+    buffers, stats = _sim3_residual_pass(pose, aff_a, aff_b, pts, frame_quad,
+                                         cam, cfg, cfg.use_esm_sim3)
+    wp, wd, mean, mean_d, mean_p = _sim3_weights(pose, buffers, cfg, sigma2)
+    A, _, _ = _sim3_normal_equations(buffers, wp, wd)
+    A = 0.5 * (A + A.transpose(-1, -2))  # exact symmetry
+    return A, mean, mean_d, mean_p, stats["usage"]
+
+
+def final_pass(pose, aff_a, aff_b, pts: PointSet, frame_quad, cam: Camera,
+               cfg: TrackerConfig, sigma2: float):
+    """`final_pass_plain`'s values: for CUDA tensors one launch of
+    `sim3_level` with no trials (the kernel's pass at the given pose, A
+    symmetric by construction), for CPU ones the plain pass."""
+    if pose.device.type == "cpu":
+        return final_pass_plain(pose, aff_a, aff_b, pts, frame_quad, cam,
+                                cfg, sigma2)
+    from lsd_slam_tpu_torch.ops import lm_track
+    out = lm_track.sim3_level(
+        pose, aff_a, aff_b, tuple(getattr(pts, f) for f in _POINT_FIELDS),
+        frame_quad, cam, cfg, sigma2, 0.0, 0, 0, final=True)
+    fin = out[7]
+    return (fin[:, 4:].reshape(-1, 7, 7), fin[:, 0], fin[:, 1], fin[:, 2],
+            fin[:, 3])
+
+
 def _sim3_impl(cam: Camera, cfg: TrackerConfig, sigma2: float,
                start_level: int, final_level: int, ref: TrackingRef,
                frame: TrackingRef, init_frame_to_ref) -> Sim3TrackResult:
@@ -252,7 +390,6 @@ def _sim3_impl(cam: Camera, cfg: TrackerConfig, sigma2: float,
     aff_a = torch.ones(b, dtype=f32, device=dev)
     aff_b = torch.zeros(b, dtype=f32, device=dev)
     diverged = torch.zeros(b, dtype=torch.bool, device=dev)
-    eye7 = 1e-12 * torch.eye(7, dtype=f32, device=dev)
     syncs = 0
 
     for lvl in range(start_level, final_level - 1, -1):
@@ -260,91 +397,22 @@ def _sim3_impl(cam: Camera, cfg: TrackerConfig, sigma2: float,
         # fine-level point striding: levels <= 2 run on every 2nd compacted
         # point (the JAX package's statistical-estimate cut, kept as is)
         stride = 2 if lvl <= 2 else 1
-        pts_l = _strided(ref.pts[lvl], stride)
         min_pts = max(0.5 * cfg.min_goodperall_pixel_absmin * caml.height
                       * caml.width / stride, 10.0)
-
-        def res_pass(p, a, b_, pts_l=pts_l, caml=caml, lvl=lvl):
-            return _sim3_residual_pass(p, a, b_, pts_l, frame.sim3_quad[lvl],
-                                       caml, cfg, cfg.use_esm_sim3)
-
-        buffers, stats = res_pass(pose, aff_a, aff_b)
-        div0 = stats["in_count"] < min_pts
-        aff_a, aff_b = stats["aff_a_new"], stats["aff_b_new"]
-        wp, wd, last_err, _, _ = _sim3_weights(pose, buffers, cfg, sigma2)
-        A, g, n = _sim3_normal_equations(buffers, wp, wd)
-        lam = torch.full((b,), cfg.lambda_initial, dtype=f32, device=dev)
-        it = torch.zeros(b, dtype=torch.int32, device=dev)
-        inc_try = torch.zeros(b, dtype=torch.int32, device=dev)
-        trials = torch.zeros(b, dtype=torch.int32, device=dev)
-        done = div0.clone()
-        div_l = div0.clone()
-        usage = stats["usage"]
-        max_its = cfg.max_iterations[lvl]
-        max_trials = max_its + 4 * cfg.max_lm_rejects
-
-        while True:
-            active = (it < max_its) & ~done & (trials < max_trials)
-            syncs += 1
-            if not bool(active.any()):
-                break
-            An = A / n[:, None, None]
-            gn = g / n[:, None]
-            An = An + lam[:, None, None] * torch.diag_embed(
-                torch.diagonal(An, dim1=-2, dim2=-1))
-            inc = torch.linalg.solve_ex(An + eye7, gn.unsqueeze(-1),
-                                        check_errors=False)[0].squeeze(-1)
-            inc_sq = torch.sum(inc * inc, dim=-1)
-            blown = ~((inc_sq >= 0) & (inc_sq < 1.0))
-
-            new_pose = lie.sim3_mul(lie.sim3_exp(inc), pose)
-            buffers, stats = res_pass(new_pose, aff_a, aff_b)
-            div = (stats["in_count"] < min_pts) | blown
-            wp, wd, err, _, _ = _sim3_weights(new_pose, buffers, cfg, sigma2)
-            A_new, g_new, n_new = _sim3_normal_equations(buffers, wp, wd)
-
-            accept = (err < last_err) & ~div
-            lam_acc = torch.where(lam <= 0.2, torch.zeros_like(lam),
-                                  lam * cfg.lambda_success_fac)
-            lam_rej = torch.where(
-                lam == 0.0, torch.full_like(lam, 0.2),
-                lam * torch.pow(torch.full_like(lam, cfg.lambda_fail_fac),
-                                (inc_try + 1).to(f32)))
-            converged = (err / torch.clamp_min(last_err, 1e-12)
-                         > cfg.convergence_eps)
-            step_small = inc_sq < cfg.step_size_min
-
-            take = active & accept
-            pose = torch.where(take[:, None], new_pose, pose)
-            aff_a = torch.where(take, stats["aff_a_new"], aff_a)
-            aff_b = torch.where(take, stats["aff_b_new"], aff_b)
-            A = torch.where(take[:, None, None], A_new, A)
-            g = torch.where(take[:, None], g_new, g)
-            n = torch.where(take, n_new, n)
-            last_err = torch.where(take, err, last_err)
-            usage = torch.where(take, stats["usage"], usage)
-            lam = torch.where(active, torch.where(accept, lam_acc, lam_rej),
-                              lam)
-            it = it + take.to(torch.int32)
-            inc_try = torch.where(active, torch.where(
-                accept, torch.zeros_like(inc_try), inc_try + 1), inc_try)
-            trials = trials + active.to(torch.int32)
-            done = done | (active & (div | (accept & converged)
-                                     | (~accept & step_small)))
-            div_l = div_l | (active & div)
-        diverged = diverged | div_l
+        r = level(pose, aff_a, aff_b, _strided(ref.pts[lvl], stride),
+                  frame.sim3_quad[lvl], caml, cfg, sigma2, min_pts,
+                  cfg.max_iterations[lvl])
+        pose, aff_a, aff_b = r.pose, r.aff_a, r.aff_b
+        diverged = diverged | r.diverged
+        syncs += r.n_syncs
 
     # final Hessian at the converged pose (Sim3Tracker.cpp:354-363), with
     # the same fine-level stride as the LM passes
     lvl = final_level
-    caml = cam.level(lvl)
     stride = 2 if lvl <= 2 else 1
-    buffers, stats = _sim3_residual_pass(
+    A, mean, mean_d, mean_p, usage = final_pass(
         pose, aff_a, aff_b, _strided(ref.pts[lvl], stride),
-        frame.sim3_quad[lvl], caml, cfg, cfg.use_esm_sim3)
-    wp, wd, mean, mean_d, mean_p = _sim3_weights(pose, buffers, cfg, sigma2)
-    A, _, _ = _sim3_normal_equations(buffers, wp, wd)
-    A = 0.5 * (A + A.transpose(-1, -2))  # exact symmetry
+        frame.sim3_quad[lvl], cam.level(lvl), cfg, sigma2)
     ref_valid_count = torch.clamp_min(ref.pts[lvl].n_valid / stride, 1.0)
 
     diverged = diverged | (pose[:, 7] <= 0)
@@ -353,9 +421,8 @@ def _sim3_impl(cam: Camera, cfg: TrackerConfig, sigma2: float,
     return Sim3TrackResult(
         ref_to_frame=pose, frame_to_ref=lie.sim3_inverse(pose),
         diverged=diverged, last_residual=mean, depth_residual=mean_d,
-        photo_residual=mean_p,
-        point_usage=stats["usage"] / ref_valid_count, hessian=A,
-        n_syncs=syncs)
+        photo_residual=mean_p, point_usage=usage / ref_valid_count,
+        hessian=A, n_syncs=syncs)
 
 
 def pack_result(r: Sim3TrackResult) -> torch.Tensor:

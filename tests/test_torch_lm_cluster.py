@@ -272,3 +272,86 @@ def test_stamps_follow_the_passes():
     st = stamps.cpu().numpy()
     seq = np.concatenate([st[:3 * passes], st[-1:]])
     assert (seq > 0).all() and (np.diff(seq) >= 0).all()
+
+
+def _sim3_scene(device):
+    """`_lm_scene`'s keyframe with its Sim(3) layouts, as a reference and
+    as a frame (a pair of keyframes, as the constraint search tracks)."""
+    from lsd_slam_tpu_torch import lie
+    from lsd_slam_tpu_torch.frames import build_depth_pyramid, build_frame
+    from lsd_slam_tpu_torch.tracking import make_tracking_ref
+    from lsd_slam_tpu_torch.utils import synth
+
+    from test_torch_rules import CAM
+
+    scene = synth.PlaneScene(seed=5)
+    refs = []
+    for tan in ([0, 0, 0, 0, 0, 0], [0.02, -0.012, 0.015, 0.006, -0.01,
+                                      0.004]):
+        pose = lie.se3_exp(torch.tensor(tan, dtype=torch.float32))
+        img, dep = synth.render(scene, CAM, pose, device=device)
+        ok = dep > 0
+        idepth = torch.where(ok, 1.0 / torch.where(ok, dep, 1.0), 0.0)
+        ivar = torch.where(ok, torch.full_like(dep, 1e-3), 0.0)
+        refs.append(make_tracking_ref(build_frame(img),
+                                      build_depth_pyramid(idepth, ivar),
+                                      min_level=1))
+    return refs
+
+
+@pytest.mark.cuda
+def test_sim3_track_on_the_card_launches_its_kernel(monkeypatch):
+    """A 4-lane Sim(3) batch on CUDA tensors (the pair, twice, and a zero
+    padding set) launches `sim3_level` once per level and once for the
+    final pass, never the plain loop, pulls nothing (n_syncs 0), and each
+    level's launch at C = 1, at the card's largest C and at the chosen one
+    gives the same bits."""
+    _card()
+    from lsd_slam_tpu_torch.config import TrackerConfig
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
+
+    from test_torch_rules import CAM
+
+    ref, frame = _sim3_scene("cuda")
+    zero = st3.TrackingRef(
+        pts=tuple(None if p is None else type(p)(**{
+            f: torch.zeros_like(getattr(p, f))
+            for f in st3._POINT_FIELDS + ("n_valid",)}) for p in ref.pts),
+        sim3_quad=ref.sim3_quad)
+    levels = (3, 2)
+    stacked = st3.stack_refs([ref, ref, ref, zero], levels)
+    calls = []
+    real = st3.level
+
+    def spy(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    def plain(*a, **k):
+        raise AssertionError("plain Sim(3) loop reached with CUDA tensors")
+
+    monkeypatch.setattr(st3, "level", spy)
+    monkeypatch.setattr(st3, "level_plain", plain)
+    monkeypatch.setattr(st3, "final_pass_plain", plain)
+    tracker = st3.Sim3Tracker(CAM, TrackerConfig(), sigma2=16.0)
+    before = lm_track.SIM3_LAUNCHES
+    inits = torch.tensor([[1, 0, 0, 0, 0, 0, 0, 1]] * 4, dtype=torch.float32)
+    res = tracker.track_batch(stacked, frame, inits, *levels)
+    torch.cuda.synchronize()
+    assert lm_track.SIM3_LAUNCHES - before == 3 and res.n_syncs == 0
+    assert res.diverged.tolist() == [False, False, False, True]
+    most = lm_track.max_cluster(torch.device("cuda"), sim3=True)
+    for a in calls:
+        pose, aa, ab, pts, quad, cam, cfg, sigma2, min_pts, max_its = a
+        fields = tuple(getattr(pts, f) for f in lm_track.SIM3_POINT_FIELDS)
+        outs = [lm_track.sim3_level(pose, aa, ab, fields, quad, cam, cfg,
+                                    sigma2, min_pts, max_its,
+                                    max_its + 4 * cfg.max_lm_rejects,
+                                    final=True, cluster=c)
+                for c in (1, most, None)]
+        torch.cuda.synchronize()
+        for out in outs[1:]:
+            for x, y in zip(out, outs[0]):
+                if x.is_floating_point():
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                assert torch.equal(x, y)
