@@ -224,16 +224,21 @@ raises, so the script exits non-zero and prints no ok line:
                SE(3) or quick LM flag. Then the Sim(3) cases
                (`sim3_phase`): every `sim3_level` launch of [slam]'s first
                constraint search that runs all three stages (its scenario
-               replayed up to there; both directions, the lanes as the
-               engine padded them; the levels and the final passes),
-               each against its plain version on the card (the bounds in
-               SIM3_POSE_ATOL..., on the lanes the CPU's plain loop
-               settles; the final pass on every lane), a second launch and
-               every cluster size giving the same bits, CUDA-event ms per
-               launch, per stage and per search beside `sim3_bound`. The
-               SLAM phases, [cli]'s runner runs, [multihost] and [warmup]
-               count `sim3_level` launches (at least six a constraint
-               search) and pull no Sim(3) LM flag.
+               replayed up to there; four launches, one a level, each over
+               both directions with the lanes as the engine padded them,
+               each stage's last with the final pass after its loop), each
+               direction against its plain version run on the CPU (the
+               bounds in SIM3_POSE_ATOL..., on the lanes the CPU's plain
+               loop settles), the fused final pass giving the bits of the
+               final pass launched alone, a second launch and every
+               cluster size giving the same bits (the card's active
+               clusters at each size logged, every launch's clusters all
+               resident), CUDA-event ms per launch, per stage and per
+               search beside `sim3_bound`, and the kernel's clock stamps
+               (sweep, fold, tail per pass). The SLAM phases, [cli]'s
+               runner runs, [multihost] and [warmup] count `sim3_level`
+               launches (one a level of every stage a search reached) and
+               pull no Sim(3) LM flag.
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -266,6 +271,7 @@ times a fresh engine's first calls with or without warm-up first and
 prints them as the last line (what [warmup] runs in each process).
 
     python3 chip_smoke.py --lm-only [--baseline-lm-cu BASELINE.cu]
+                                   [--baseline-sim3-cu BASELINE.cu]
 
 runs only the build, [vo] (its LM level inputs recorded) and [lm], its
 Sim(3) cases included: one short call. `--baseline-lm-cu baselines/lm_track_04f70d1_stamped.cu`
@@ -275,6 +281,14 @@ csrc/lm_track.cu (one block per lane) with the stamp buffer added
 refused, by its sha256, before anything is built), and at [vo]'s levels
 prints its phase split, whether it gives the current kernel's bits, and
 its ms in turns with the current kernel.
+
+`--baseline-sim3-cu baselines/sim3_track_681971f_stamped.cu` (here or in
+the full run) also builds that file, commit 681971f's csrc/sim3_track.cu
+(a launch per direction and level, the final pass a launch of its own)
+with the stamp buffer added (any other file is refused, by its sha256),
+and at every launch of [lm]'s Sim(3) cases checks that it gives the same
+bits on every lane at every cluster size, prints its phase split per
+direction and its ms in turns with the current kernel (and the search's).
 
     python3 chip_smoke.py --lm-turns
 
@@ -856,12 +870,21 @@ def log_run(tag, run, n, fused, acc, plain):
     return st
 
 
+def search_launches(st):
+    """The `sim3_level` launches the constraint searches of a run whose
+    stats are `st` make: one a level of each stage they reached, both
+    directions together, each final pass inside its stage's last launch
+    (stage (4,3) two, (2,2) and (1,1) one each)."""
+    return int(2 * st.get("sim3_stage0_n", 0) + st.get("sim3_stage1_n", 0)
+               + st.get("sim3_stage2_n", 0))
+
+
 def assert_lm_on_path(tag, st, n_tracked):
     """The LM loops of a card run went through the kernels: the four levels
     of every tracked frame (frame 0 is the initialisation) launched
-    `lm_level`, every constraint search launched `sim3_level` (stage (4,3)
-    alone is two levels and a final pass in each direction), and no
-    tracker (SE(3), quick, Sim(3)) pulled a trial flag."""
+    `lm_level`, every constraint search launched `sim3_level` once a level
+    of every stage it reached (`search_launches`), and no tracker (SE(3),
+    quick, Sim(3)) pulled a trial flag."""
     searches = int(st.get("sim3_stage0_n", 0))
     sim3 = SIM3_LAUNCHES.get(tag, 0)
     log(f"[{tag}] lm_level launches {LM_LAUNCHES[tag]} over {n_tracked} "
@@ -874,7 +897,7 @@ def assert_lm_on_path(tag, st, n_tracked):
     # the SE(3) track's levels 1-3 spread over a cluster
     assert any(int(c) > 1 for c in LM_CLUSTERS[tag]), LM_CLUSTERS[tag]
     assert st.get("lm_syncs", 0) == 0 and st.get("quick_syncs", 0) == 0, st
-    assert sim3 >= 6 * searches, (tag, sim3, searches)
+    assert sim3 == search_launches(st), (tag, sim3, search_launches(st))
     assert st.get("sim3_syncs", 0) == 0, st
 
 
@@ -1222,8 +1245,9 @@ def _runner(args, timeout=900):
             and counts["plain"] == 0 and counts["segment_plain"] == 0
             and counts["lm"] > 0), (args, counts)
     # the Sim(3) loops on the card pull no flag; every search launched
+    # once a level of every stage it reached
     assert counts.get("sim3_syncs", 0) == 0, (args, counts)
-    assert counts["sim3"] >= 6 * counts.get("searches", 0), (args, counts)
+    assert counts["sim3"] == counts.get("search_launches", 0), (args, counts)
     return proc.stdout, done_fps(done[0]), counts
 
 
@@ -1315,7 +1339,8 @@ def counted_runner(argv, multihost_gates=False) -> int:
     if "system" in seen:
         st = seen["system"].stats.snapshot()
         counts.update(sim3_syncs=st.get("sim3_syncs", 0),
-                      searches=st.get("sim3_stage0_n", 0))
+                      searches=st.get("sim3_stage0_n", 0),
+                      search_launches=search_launches(st))
     frontend = seen.get("frontend")
     if frontend is not None:
         counts.update(fanouts=frontend.fanouts, pgo_calls=frontend.pgo_calls,
@@ -1821,28 +1846,22 @@ def mesh_witness(within, args):
     return types.SimpleNamespace(plain=plain, settled=settled)
 
 
-def lm_phase_split(torch, args, clock_mhz, launches=5, **kw):
-    """Where one launch of `lm_level` spends its cycles: the kernel's stamp
-    buffer (`ops.lm_track.lm_level(stamps=...)`) on `args` (a recorded
-    `tracking.lm.level` call), `launches` launches; per pass the leader
-    thread's sweep (its own points), the fold (the rest of the sums, the
-    barriers included) and the tail (the solve, the update and the
-    barriers up to the next pass). Returns the medians over every pass in
-    cycles and in us at `clock_mhz`, and the passes a launch ran."""
-    from dataclasses import asdict
-    from lsd_slam_tpu_torch.ops import lm_track
-
-    pose, a, b, pts, quad, cam, cfg, sigma2, sched = args
-    sched = asdict(sched)
-    fields = tuple(getattr(pts, f) for f in lm_track.POINT_FIELDS)
-    stamps = torch.zeros(lm_track.stamp_slots(sched), dtype=torch.int64,
-                         device=pose.device)
+def stamp_split(torch, launch, slots, clock_mhz, launches=5):
+    """Where one launch of an LM level kernel spends its cycles, from its
+    stamp buffer: `launch(stamps)` runs one launch that writes the first
+    lane's leader `clock64()` into `stamps` (int64, `slots` long: the
+    start, the end of its own sweep and the end of the fold of every pass,
+    the end last) and returns the passes that lane ran. Per pass the
+    leader thread's sweep (its own points), the fold (the rest of the
+    sums, the barriers included) and the tail (the solve, the update and
+    the barriers up to the next pass). Returns the medians over every pass
+    of `launches` launches in cycles and in us at `clock_mhz`, and the
+    passes a launch ran."""
+    stamps = torch.zeros(slots, dtype=torch.int64, device="cuda")
     parts = {"sweep": [], "fold": [], "tail": []}
     for _ in range(launches):
         stamps.zero_()
-        out = lm_track.lm_level(pose, a, b, fields, quad, cam, cfg, sigma2,
-                                sched, stamps=stamps, **kw)
-        passes = int(out[5].reshape(-1)[0]) + 1
+        passes = launch(stamps)
         st = stamps.cpu().numpy()
         end = st[-1]
         for q in range(passes):
@@ -1856,6 +1875,30 @@ def lm_phase_split(torch, args, clock_mhz, launches=5, **kw):
         cyc = float(np.median(v))
         out[k] = dict(cycles=cyc, us=cyc / clock_mhz)
     return out
+
+
+def split_text(split):
+    return "".join(f" {k} {split[k]['cycles']:.0f} cycles "
+                   f"{split[k]['us']:.2f} us;"
+                   for k in ("sweep", "fold", "tail"))
+
+
+def lm_phase_split(torch, args, clock_mhz, launches=5, **kw):
+    """`stamp_split` of `lm_level` (`ops.lm_track.lm_level(stamps=...)`)
+    on `args`, a recorded `tracking.lm.level` call."""
+    from dataclasses import asdict
+    from lsd_slam_tpu_torch.ops import lm_track
+
+    pose, a, b, pts, quad, cam, cfg, sigma2, sched = args
+    sched = asdict(sched)
+    fields = tuple(getattr(pts, f) for f in lm_track.POINT_FIELDS)
+
+    def launch(stamps):
+        out = lm_track.lm_level(pose, a, b, fields, quad, cam, cfg, sigma2,
+                                sched, stamps=stamps, **kw)
+        return int(out[5].reshape(-1)[0]) + 1
+    return stamp_split(torch, launch, lm_track.stamp_slots(sched), clock_mhz,
+                       launches)
 
 
 @contextlib.contextmanager
@@ -2159,49 +2202,46 @@ def lm_phase(torch, card, vo_levels, baseline=None):
 
 # ---- the Sim(3) tracker's level kernel
 
+# a recorded launch's lane sets, in the order of the constraint search's
+# `track_pair_packed`: the new keyframe against the stacked candidates'
+# frames, and the stacked candidates against the new keyframe
+DIRECTIONS = ("frames", "refs")
+
+
 @contextlib.contextmanager
 def recorded_sim3_search():
-    """While inside, record the calls of `tracking.sim3_tracker.level` and
-    `final_pass` (what `_sim3_impl` calls; on the card each launches
-    `sim3_level`) made by the first constraint search
-    (`KeyFrameGraph.test_constraints_batch`) that runs all three stages,
-    each with its stage (0-2) and direction ("frames": the new keyframe
-    against the stacked candidates' frames; "refs": the stacked candidates
-    against the new keyframe). The arguments are kept, not copied (nothing
-    writes a tracker input in place). Yields the list, filled when such a
-    search returns."""
+    """While inside, record the calls of `tracking.sim3_tracker.levels`
+    (what `_sim3_impl` calls; on the card each is one `sim3_level` launch
+    over both directions of a constraint stage, the stage's last level
+    with the final pass after its loop) made by the first constraint
+    search (`KeyFrameGraph.test_constraints_batch`) that runs all three
+    stages, each with its stage (0-2) and whether it ran the final pass.
+    The arguments are kept, not copied (nothing writes a tracker input in
+    place). Yields the list, filled when such a search returns."""
     from lsd_slam_tpu_torch.mapping.keyframe_graph import KeyFrameGraph
     from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
 
     got = []
-    cur = dict(calls=None, stage=-1, direction=None)
-    real = dict(level=st3.level, final_pass=st3.final_pass)
+    cur = dict(calls=None, stage=-1)
+    real_levels = st3.levels
     tracker = st3.Sim3Tracker
-    real_frames = tracker.track_batch_frames_packed
-    real_refs = tracker.track_batch_packed
+    real_pair = tracker.track_pair_packed
     real_search = KeyFrameGraph.test_constraints_batch
 
-    def recorded(kind):
-        def call(*a, **k):
-            if cur["calls"] is not None:
-                cur["calls"].append(dict(kind=kind, stage=cur["stage"],
-                                         direction=cur["direction"], args=a))
-            return real[kind](*a, **k)
-        return call
+    def levels(*a, **k):
+        if cur["calls"] is not None:
+            cur["calls"].append(dict(stage=cur["stage"], args=a,
+                                     final=bool(k.get("final", False))))
+        return real_levels(*a, **k)
 
-    def frames(self, *a, **k):
-        cur["stage"] += 1       # every stage runs this direction first
-        cur["direction"] = "frames"
-        return real_frames(self, *a, **k)
-
-    def refs(self, *a, **k):
-        cur["direction"] = "refs"
-        return real_refs(self, *a, **k)
+    def pair(self, *a, **k):
+        cur["stage"] += 1
+        return real_pair(self, *a, **k)
 
     def search(self, *a, **k):
         if got:
             return real_search(self, *a, **k)
-        cur.update(calls=[], stage=-1, direction=None)
+        cur.update(calls=[], stage=-1)
         try:
             return real_search(self, *a, **k)
         finally:
@@ -2209,16 +2249,14 @@ def recorded_sim3_search():
             if cur["stage"] == 2:
                 got.extend(calls)
 
-    st3.level, st3.final_pass = recorded("level"), recorded("final_pass")
-    tracker.track_batch_frames_packed = frames
-    tracker.track_batch_packed = refs
+    st3.levels = levels
+    tracker.track_pair_packed = pair
     KeyFrameGraph.test_constraints_batch = search
     try:
         yield got
     finally:
-        st3.level, st3.final_pass = real["level"], real["final_pass"]
-        tracker.track_batch_frames_packed = real_frames
-        tracker.track_batch_packed = real_refs
+        st3.levels = real_levels
+        tracker.track_pair_packed = real_pair
         KeyFrameGraph.test_constraints_batch = real_search
 
 
@@ -2285,7 +2323,7 @@ def sim3_f64_sums():
 def slam_search_inputs(torch):
     """[slam]'s scenario on the card (sequential, lag 0) up to the end of
     its first constraint search that runs all three stages; returns that
-    search's recorded Sim(3) calls (`recorded_sim3_search`)."""
+    search's recorded Sim(3) launches (`recorded_sim3_search`)."""
     ref = load_ref(SLAM_RUNS["slam"][0])
     sys_, _, frames = slam_setup(torch, ref)
     with recorded_sim3_search() as calls:
@@ -2299,75 +2337,202 @@ def slam_search_inputs(torch):
     return calls
 
 
-def sim3_launch(args, kind, cluster=None):
-    """`ops.lm_track.sim3_level` on a recorded call's arguments (a level
-    or a final pass), at cluster size `cluster` (None: the chosen one)."""
+def sim3_max_trials(rec):
+    tracks, cam, cfg, sigma2, min_pts, max_its = rec["args"]
+    return max_its + 4 * cfg.max_lm_rejects
+
+
+def sim3_launch(rec, cluster=None, stamps=None):
+    """`ops.lm_track.sim3_level` on a recorded `levels` call, as the
+    tracker launches it (both directions in one launch, the final pass
+    after the loop where the call had one), at cluster size `cluster`
+    (None: the chosen one)."""
     from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
 
-    pose, a, b, pts, quad, cam, cfg, sigma2 = args[:8]
-    fields = tuple(getattr(pts, f) for f in lm_track.SIM3_POINT_FIELDS)
-    if kind == "level":
-        min_pts, max_its = args[8:10]
-        return lm_track.sim3_level(pose, a, b, fields, quad, cam, cfg, sigma2,
-                                   min_pts, max_its,
-                                   max_its + 4 * cfg.max_lm_rejects,
-                                   cluster=cluster)
-    return lm_track.sim3_level(pose, a, b, fields, quad, cam, cfg, sigma2,
-                               0.0, 0, 0, final=True, cluster=cluster)
+    tracks, cam, cfg, sigma2, min_pts, max_its = rec["args"]
+    pose, a, b, sets = st3.lane_table(tracks)
+    return lm_track.sim3_level(pose, a, b, sets, cam, cfg, sigma2, min_pts,
+                               max_its, sim3_max_trials(rec),
+                               final=rec["final"], cluster=cluster,
+                               stamps=stamps)
 
 
-def sim3_bound(args, outs, passes):
-    """The least time of one `sim3_level` launch on a recorded call's
-    arguments: every input read once (the point fields as given, 29 B a
-    point, strided or not, shared or per lane; the quad layouts, 80 B a
-    row; the poses and the affine pairs) and every output written once,
-    against SIM3_OPS_PER_POINT per point for every pass the lanes took.
-    Returns (ms, "bytes" or "operations")."""
+def sim3_final_alone(rec, out):
+    """The final pass as a launch of its own (no trials) at the merged
+    launch's result `out`: what its fused final pass must give."""
+    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
+
+    tracks, cam, cfg, sigma2 = rec["args"][:4]
+    sets = st3.lane_table(tracks)[3]
+    return lm_track.sim3_level(out[0], out[1], out[2], sets, cam, cfg,
+                               sigma2, 0.0, 0, 0, final=True)
+
+
+def sim3_bound(rec, outs, passes):
+    """The least time of one `sim3_level` launch on a recorded call: every
+    input read once (each set's point fields as given, 29 B a point,
+    strided or not, shared or per lane; its quad layouts, 80 B a row; the
+    poses and the affine pairs) and every output written once, against
+    SIM3_OPS_PER_POINT per point for every pass the lanes took (the final
+    pass included). Returns (ms, "bytes" or "operations")."""
     import torch
-    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
 
-    pose, a, b, pts, quad = args[:5]
-    moved = [getattr(pts, f) for f in lm_track.SIM3_POINT_FIELDS]
-    moved += [quad, pose, a, b] + [t for t in outs if torch.is_tensor(t)]
-    n_bytes = sum(t.numel() * t.element_size() for t in moved
-                  if torch.is_tensor(t))
-    n_points = int(pts.idx.shape[-1])
+    pose, a, b, sets = st3.lane_table(rec["args"][0])
+    moved = [pose, a, b] + [t for fields, quad, _ in sets
+                            for t in (*fields, quad)]
+    moved += [t for t in outs if torch.is_tensor(t)]
+    n_bytes = sum(t.numel() * t.element_size() for t in moved)
+    n_points = int(sets[0][0][0].shape[-1])
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = passes * n_points * SIM3_OPS_PER_POINT / F32_FLOP_PER_S * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def sim3_phase(torch, card):
+# sha256 of the one source --baseline-sim3-cu takes:
+# baselines/sim3_track_681971f_stamped.cu, whose `lsd_sim3_level` has the
+# ABI `baseline_sim3_launch` binds
+SIM3_STAMPED_SHA256 = (
+    "b142957b3561c7550c262aadbef4d7e90d4bb23db32a1765a5c7983e4a232f57")
+# that kernel's launch layout: tiles of 8 warps x 32 x 43 f32, then 25 B a
+# staged point (int32 index, five f32, the valid byte) up to 160 KB
+BASELINE_SIM3_TILE_BYTES = 8 * 32 * 43 * 4
+BASELINE_SIM3_STAGE_CAP = 160 * 1024 // 25
+
+
+def baseline_sim3_params():
+    """The ctypes struct of that kernel's `LsdSim3Params`: the three
+    strides of one lane layout, then today's fields after the lane
+    table."""
+    from lsd_slam_tpu_torch.ops import lm_track
+
+    class Params(ctypes.Structure):
+        _fields_ = [("pts_stride", ctypes.c_longlong),
+                    ("quad_stride", ctypes.c_longlong),
+                    ("pts_step", ctypes.c_longlong)] + [
+            f for f in lm_track.Sim3Params._fields_ if f[0] != "sets"]
+    return Params
+
+
+def baseline_sim3_launch(lib, track, cam, cfg, sigma2, min_pts, max_its,
+                         max_trials, final=False, cluster=None,
+                         stamps=None):
+    """One launch of `lib` (the build of
+    baselines/sim3_track_681971f_stamped.cu, for `--baseline-sim3-cu`) on
+    one direction `track` = (pose, aff_a, aff_b, pts, frame_quad), as
+    that commit's wrapper launched it: one lane layout by strides, its own
+    staging (25 B a point), C by the lane count and the SMs alone.
+    Returns the wrapper's eight outputs."""
+    import torch
+    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
+
+    pose, a, b, pts, quad = track
+    lanes = int(pose.shape[0])
+    dev = pose.device
+    fields, pstride, pstep, n = lm_track._sim3_points(
+        tuple(getattr(pts, f) for f in st3._POINT_FIELDS), lanes)
+    quad, qstride = lm_track._sim3_quad(quad, lanes)
+    a_in, b_in = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                  .reshape(-1).expand(lanes).contiguous() for x in (a, b))
+    if cluster is None:
+        cluster = lm_track.choose_cluster(
+            lanes, n, torch.cuda.get_device_properties(
+                dev).multi_processor_count,
+            lm_track.max_cluster(dev, sim3=True))
+    now = lm_track.make_sim3_params(cam, cfg, sigma2, min_pts, max_its,
+                                    max_trials, n, quad.shape[-2], [],
+                                    cluster)
+    staged = min(now.leaves // cluster * now.chunk, n,
+                 BASELINE_SIM3_STAGE_CAP)
+    smem = BASELINE_SIM3_TILE_BYTES + -(-staged * 25 // 16) * 16
+    Params = baseline_sim3_params()
+    prm = Params(pts_stride=pstride, quad_stride=qstride, pts_step=pstep,
+                 **{f: getattr(now, f) for f, _ in Params._fields_[3:]
+                    if f != "staged"}, staged=staged)
+    outs = [torch.empty(lanes, 8, dtype=torch.float32, device=dev)] + [
+        torch.empty(lanes, dtype=torch.float32, device=dev)
+        for _ in range(3)] + [
+        torch.empty(lanes, dtype=torch.bool, device=dev)] + [
+        torch.empty(lanes, dtype=torch.int32, device=dev) for _ in range(2)]
+    fin = (torch.empty(lanes, lm_track.SIM3_FINAL, dtype=torch.float32,
+                       device=dev) if final else None)
+    fn = lib.lsd_sim3_level
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    rc = fn(*(t.data_ptr() for t in fields), quad.data_ptr(),
+            pose.contiguous().data_ptr(), a_in.data_ptr(), b_in.data_ptr(),
+            *(t.data_ptr() for t in outs),
+            0 if fin is None else fin.data_ptr(),
+            0 if stamps is None else stamps.data_ptr(), lanes, cluster,
+            smem, ctypes.byref(prm), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"baseline sim3_level launch failed: cudaError "
+                           f"{rc}")
+    return (*outs, fin)
+
+
+def baseline_sim3_call(lib, rec, direction, cluster=None):
+    """What commit 681971f's tracker launched for one direction of a
+    recorded `levels` call: the level's launch and, where the call ran the
+    final pass, one more launch with no trials at its result. Returns the
+    level launch's outputs with the final values in place of its None."""
+    tracks, cam, cfg, sigma2, min_pts, max_its = rec["args"]
+    track = tracks[direction]
+    out = baseline_sim3_launch(lib, track, cam, cfg, sigma2, min_pts,
+                               max_its, sim3_max_trials(rec),
+                               cluster=cluster)
+    if not rec["final"]:
+        return out
+    fin = baseline_sim3_launch(lib, (out[0], out[1], out[2]) + track[3:],
+                               cam, cfg, sigma2, 0.0, 0, 0, final=True,
+                               cluster=cluster)
+    return (*out[:7], fin[7])
+
+
+def sim3_phase(torch, card, baseline=None):
     """[lm]'s Sim(3) cases: every `sim3_level` launch of [slam]'s first
     constraint search that runs all three stages (`slam_search_inputs`:
-    stages (4,3), (2,2), (1,1), both directions, the lanes as the engine
-    padded them; each stage's levels and its final pass), on the inputs
-    the main path gave the kernel. Each is held to its plain version run
-    on the CPU (`sim3_tracker.level_plain` /
-    `final_pass_plain`), as `mesh_witness` holds `lm_level`: the kernel
-    computes each per-point term as the CPU's torch does, and the card's
-    torch divides by a Python float through its f32 reciprocal (PERF.md
-    section 6), one ulp off, which degenerate lanes amplify (the
-    plain loop on the card is run too, timed, and how many lanes it meets
-    the bounds on is logged):
-      * a level: the pose within SIM3_POSE_ATOL, the affine pair within
+    stages (4,3), (2,2), (1,1); one launch a level over both directions,
+    the lanes as the engine padded them; each stage's last level with the
+    final pass after its loop), on the inputs the main path gave the
+    kernel. Each direction of each launch is held to its plain version run
+    on the CPU (`sim3_tracker.level_plain` / `final_pass_plain`), as
+    `mesh_witness` holds `lm_level`: the kernel computes each per-point
+    term as the CPU's torch does, and the card's torch divides by a Python
+    float through its f32 reciprocal (PERF.md section 6), one ulp off,
+    which degenerate lanes amplify (the plain loop on the card is run too,
+    timed, and how many lanes it meets the bounds on is logged):
+      * the level: the pose within SIM3_POSE_ATOL, the affine pair within
         LM_AFF_ATOL, the level's error within SIM3_ERR_RTOL relative, the
         diverged flags and the trial and accept counts equal, on every lane
         that settles: where the CPU's plain loop summing in f64 as the
         kernel does (`sim3_f64_sums`) meets the same bounds against the
         CPU's plain loop, so the rounding of the sums does not decide the
         lane's path;
-      * a final pass (one pass at the given pose, no loop): A within
-        SIM3_HESS_RTOL of the lane's largest entry, the residual means and
-        the usage within SIM3_ERR_RTOL relative, on every lane that settles
-        (the f64-summing pass within those bounds; the padding lanes of the
-        "frames" direction warp real points into zero layouts, a
-        degenerate pass whose sums rounding decides).
+      * the final pass (one pass at the level's result, the kernel's own):
+        A within SIM3_HESS_RTOL of the lane's largest entry, the residual
+        means and the usage within SIM3_ERR_RTOL relative, on every lane
+        that settles (the f64-summing pass within those bounds; the
+        padding lanes of the "frames" direction warp real points into zero
+        layouts, a degenerate pass whose sums rounding decides); and its
+        bits equal the final pass launched on its own at that result.
     A second launch gives the first one's bits, and every power-of-two
-    cluster size the card schedules gives them too. CUDA-event ms of the
-    kernel and the plain version per launch, per stage and for the search,
-    beside the bound (`sim3_bound`). Returns the kernels line's numbers."""
+    cluster size the card schedules gives them too (the card's active
+    clusters at each size are logged). CUDA-event ms of the kernel and the
+    plain version per launch, per stage and for the search, beside the
+    bound (`sim3_bound`), and where the launch spends its cycles
+    (`stamp_split` on lane 0 of the "frames" direction). With `baseline`
+    (the library of `--baseline-sim3-cu`): commit 681971f's kernel, run as
+    that commit's tracker ran it (a launch per direction and level, the
+    final pass a launch of its own), gives the same bits on every lane at
+    every cluster size, and its split and its ms in turns with the merged
+    launch.
+    Returns the kernels line's numbers."""
     from lsd_slam_tpu_torch.ops import lm_track
     from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
 
@@ -2420,34 +2585,48 @@ def sim3_phase(torch, card):
         """Per lane: the final pass's gaps within the bounds (NaN fails)."""
         return (gaps[0] <= SIM3_HESS_RTOL) & (gaps[1:] <= SIM3_ERR_RTOL).all(0)
 
+    def final_values(fin):
+        return (fin[:, 4:].reshape(-1, 7, 7), fin[:, 0], fin[:, 1],
+                fin[:, 2], fin[:, 3])
+
     calls = slam_search_inputs(torch)
-    most = lm_track.max_cluster(calls[0]["args"][0].device, sim3=True)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = calls[0]["args"][0][0][0].device
+    clock_mhz = sm_clocks_mhz()[0]
+    most = lm_track.max_cluster(dev, sim3=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases, worst, n_settled = [], 0.0, 0
     stages = {}
-    for c in calls:
-        args, kind = c["args"], c["kind"]
-        lanes = int(args[0].shape[0])
-        n_pts = int(args[3].idx.shape[-1])
-        lvl = int(round(math.log2(640 / args[5].width)))
-        name = (f"Sim(3) stage {c['stage']} {c['direction']}, {kind} at "
-                f"level {lvl} ({lanes} lanes, {n_pts} points a lane, "
-                f"{'per-lane' if args[4].dim() == 3 else 'shared'} quads)")
-        out = sim3_launch(args, kind)
-        again = sim3_launch(args, kind)
+    for rec in calls:
+        tracks, cam, cfg, sigma2, min_pts, max_its = rec["args"]
+        sizes = [int(t[0].shape[0]) for t in tracks]
+        lanes = sum(sizes)
+        n_pts = int(tracks[0][3].idx.shape[-1])
+        lvl = int(round(math.log2(640 / cam.width)))
+        head = (f"Sim(3) stage {rec['stage']}, level {lvl}"
+                + (" and the final pass" if rec["final"] else "")
+                + f" ({lanes} lanes: " + ", ".join(
+                    f"{n} {d}" for n, d in zip(sizes, DIRECTIONS))
+                + f"; {n_pts} points a lane)")
+        out = sim3_launch(rec)
+        again = sim3_launch(rec)
         torch.cuda.synchronize()
-        cpu_args = cpu(args)
-        if kind == "level":
-            twice = same_bits(out[:7], again[:7])
-            got = st3.LevelResult(*(x.cpu() for x in out[:7]))
+        twice = same_bits(out[:8], again[:8])
+        settled_all = []
+        for d, direction in enumerate(DIRECTIONS):
+            track = tracks[d]
+            name = f"{head} {direction}"
+            cpu_args = cpu(tuple(track) + (cam, cfg, sigma2, min_pts,
+                                           max_its))
+            got = st3.LevelResult(*(x.split(sizes)[d].cpu()
+                                    for x in out[:7]))
             want = st3.level_plain(*cpu_args)
             with sim3_f64_sums():
                 summed = st3.level_plain(*cpu_args)
             settled = level_gaps(summed, want)[0]
             ok, pose_gap = level_gaps(got, want)
-            on_card = level_gaps(cpu(st3.level_plain(*args)), want)[0]
+            on_card = level_gaps(cpu(st3.level_plain(
+                *track, cam, cfg, sigma2, min_pts, max_its)), want)[0]
             held = ok[settled]
-            passes = int((got.trials.long() + 1).sum())
             if settled.any():
                 worst = max(worst, float(pose_gap[settled].max()))
             log(f"[lm] {name}: trials kernel {got.trials.tolist()} / plain "
@@ -2458,83 +2637,148 @@ def sim3_phase(torch, card):
                 f"error {float(rel(got.last_err, want.last_err).max()):.3g} "
                 f"relative ({SIM3_ERR_RTOL:g}); lanes that settle (the CPU's "
                 f"plain loop summing in f64 within the bounds of the CPU's "
-                f"plain loop) {int(settled.sum())} of {lanes}, the kernel "
+                f"plain loop) {int(settled.sum())} of {sizes[d]}, the kernel "
                 f"within the bounds on {int(held.sum())} of them "
                 f"({int(ok.sum())} of all; the card's plain loop: "
                 f"{int(on_card.sum())}); second launch bit-equal {twice}")
             assert twice and bool(held.all()), (name, twice, settled, ok)
-
-            def kernel(args=args):
-                return st3.level(*args)
-
-            def plain(args=args):
-                return st3.level_plain(*args)
-        else:
-            twice = same_bits(out[:8], again[:8])
-            got = cpu(st3.final_pass(*args))
-            want = st3.final_pass_plain(*cpu_args)
+            settled_all.append(int(settled.sum()))
+            if not rec["final"]:
+                continue
+            fin = cpu(final_values(out[7].split(sizes)[d]))
+            at = (got.pose, got.aff_a, got.aff_b) + cpu_args[3:8]
+            want_f = st3.final_pass_plain(*at)
             with sim3_f64_sums():
-                summed = st3.final_pass_plain(*cpu_args)
-            settled = final_ok(final_gaps(summed, want))
-            gaps = final_gaps(got, want)
-            ok = final_ok(gaps)
-            on_card = final_ok(final_gaps(cpu(st3.final_pass_plain(*args)),
-                                          want))
-            held = ok[settled]
-            passes = lanes
-            hess = float(gaps[0][settled].max()) if settled.any() else 0.0
-            rest = (float(gaps[1:, settled].max()) if settled.any()
+                summed_f = st3.final_pass_plain(*at)
+            settled_f = final_ok(final_gaps(summed_f, want_f))
+            gaps = final_gaps(fin, want_f)
+            ok_f = final_ok(gaps)
+            held_f = ok_f[settled_f]
+            hess = (float(gaps[0][settled_f].max()) if settled_f.any()
                     else 0.0)
-            log(f"[lm] {name}: lanes that settle (the CPU's plain pass "
-                f"summing in f64 within the bounds of the CPU's plain pass) "
-                f"{int(settled.sum())} of {lanes}; on them the largest gap "
-                f"of the kernel: Hessian {hess:.3g} of its largest entry "
-                f"(bound {SIM3_HESS_RTOL:g}), residual means and usage "
-                f"{rest:.3g} relative ({SIM3_ERR_RTOL:g}); within the bounds "
-                f"on {int(ok.sum())} of all (the card's plain pass: "
-                f"{int(on_card.sum())}); second launch bit-equal {twice}")
-            assert twice and bool(held.all()), (name, twice, settled, gaps)
-
-            def kernel(args=args):
-                return st3.final_pass(*args)
-
-            def plain(args=args):
-                return st3.final_pass_plain(*args)
-        chosen = lm_track.choose_cluster(lanes, n_pts, sms, most)
+            rest = (float(gaps[1:, settled_f].max()) if settled_f.any()
+                    else 0.0)
+            log(f"[lm] {name}, its final pass: lanes that settle (the "
+                f"CPU's plain pass at the kernel's result summing in f64 "
+                f"within the bounds of the CPU's plain pass) "
+                f"{int(settled_f.sum())} of {sizes[d]}; on them the largest "
+                f"gap of the kernel: Hessian {hess:.3g} of its largest "
+                f"entry (bound {SIM3_HESS_RTOL:g}), residual means and "
+                f"usage {rest:.3g} relative ({SIM3_ERR_RTOL:g}); within the "
+                f"bounds on {int(ok_f.sum())} of all")
+            assert bool(held_f.all()), (name, settled_f, gaps)
+            settled_all.append(int(settled_f.sum()))
+        fused_same = None
+        if rec["final"]:
+            alone = sim3_final_alone(rec, out)
+            fused_same = torch.equal(bits(alone[7]), bits(out[7]))
+            assert fused_same, (head, "fused final pass")
+        active = {c: lm_track.sim3_active_clusters(
+            dev, c, lm_track.launch_layout(n_pts, c, sim3=True)[3])
+            for c in (1, 2, 4, 8, 16)}
+        chosen = lm_track.choose_cluster(lanes, n_pts, sms, most, active.get)
+        assert active[chosen] >= lanes, (head, chosen, active)
         chunk, leaves, staged, smem = lm_track.launch_layout(
             n_pts, chosen, sim3=True)
         by_c, size = {}, 1
         while size <= most:
-            by_c[size] = same_bits(sim3_launch(args, kind, size)[:8], out[:8])
+            by_c[size] = same_bits(sim3_launch(rec, size)[:8], out[:8])
             size *= 2
+
+        def kernel(rec=rec):
+            return st3.levels(*rec["args"], final=rec["final"])
+
+        def plain(rec=rec):
+            return st3.levels_plain(*rec["args"], final=rec["final"])
         ms = time_gpu(torch, kernel, 10, 5)
         plain_ms = time_gpu(torch, plain, 1, 3)
-        b_ms, b_by = sim3_bound(args, out, passes)
-        log(f"[lm] {name}: cluster {chosen} chosen (the card's largest "
-            f"{most}); {leaves} chunks of {chunk} points, {staged} points "
-            f"staged, {smem} B of shared memory a block; the same bits at "
-            f"every cluster size: {by_c}; kernel {ms:.4f} ms ({passes} "
-            f"passes), plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
-            f"({b_by}); {card}")
-        assert all(by_c.values()), (name, by_c)
-        n_settled += int(settled.sum())
-        cases.append(dict(stage=c["stage"], direction=c["direction"],
-                          kind=kind, level=lvl, lanes=lanes, points=n_pts,
-                          settled=int(settled.sum()),
-                          cluster=chosen, chunk=chunk, leaves=leaves,
-                          staged=staged, smem_bytes=smem, passes=passes,
-                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by))
-        stage = stages.setdefault(c["stage"], dict(ms=0.0, plain_ms=0.0,
-                                                   bound_ms=0.0, launches=0))
+        passes = int((out[5].long() + 1).sum()) + (lanes if rec["final"]
+                                                   else 0)
+        b_ms, b_by = sim3_bound(rec, out, passes)
+
+        def stamped(stamps, rec=rec):
+            got = sim3_launch(rec, stamps=stamps)
+            return int(got[5][0]) + 1 + int(rec["final"])
+        split = stamp_split(torch, stamped,
+                            lm_track.sim3_stamp_slots(sim3_max_trials(rec)),
+                            clock_mhz)
+        log(f"[lm] {head}: the fused final pass gives the bits of the "
+            f"final pass launched alone: {fused_same}; cluster {chosen} "
+            f"chosen (the card's largest {most}; clusters the card holds "
+            f"at once by size, at each size's shared memory: {active}); "
+            f"{leaves} chunks of {chunk} points, {staged} points staged, "
+            f"{smem} B of shared memory a block; the same bits at every "
+            f"cluster size: {by_c}; kernel {ms:.4f} ms ({passes} passes), "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); phase "
+            f"split (median per pass of lane 0 over {split['passes']} "
+            f"passes x 5 launches, at {clock_mhz:.0f} MHz):"
+            + split_text(split) + f" {card}")
+        assert all(by_c.values()), (head, by_c)
+        n_settled += sum(settled_all)
+        case = dict(stage=rec["stage"], level=lvl, final=rec["final"],
+                    lanes=sizes, points=n_pts, settled=settled_all,
+                    cluster=chosen, active_clusters=active, chunk=chunk,
+                    leaves=leaves, staged=staged, smem_bytes=smem,
+                    passes=passes, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, phase_split=split)
+        if baseline is not None:
+            old_same = {}
+            size = 1
+            while size <= most:
+                new = sim3_launch(rec, size)
+                old_same[size] = all(
+                    same_bits([x.split(sizes)[d] for x in new[:8]
+                               if torch.is_tensor(x)],
+                              [x for x in baseline_sim3_call(
+                                  baseline, rec, d, size)
+                               if torch.is_tensor(x)])
+                    for d in range(len(DIRECTIONS)))
+                size *= 2
+            old_split = {}
+            for d, direction in enumerate(DIRECTIONS):
+                def old_stamped(stamps, d=d, rec=rec):
+                    got = baseline_sim3_launch(
+                        baseline, tracks[d], cam, cfg, sigma2, min_pts,
+                        max_its, sim3_max_trials(rec), stamps=stamps)
+                    return int(got[5][0]) + 1
+                old_split[direction] = stamp_split(
+                    torch, old_stamped, 3 * (sim3_max_trials(rec) + 1) + 1,
+                    clock_mhz)
+
+            def old(rec=rec):
+                return [baseline_sim3_call(baseline, rec, d)
+                        for d in range(len(DIRECTIONS))]
+            turns = time_in_turns(torch, [("kernel", kernel),
+                                          ("baseline", old)], 10, 6)
+            case.update(baseline_bits_equal=old_same,
+                        baseline_split=old_split, turns=turns,
+                        baseline_launches=len(DIRECTIONS)
+                        * (2 if rec["final"] else 1))
+            log(f"[lm] {head}: commit 681971f's kernel (baseline, "
+                f"{case['baseline_launches']} launches) gives the same bits "
+                f"on every lane at every cluster size: {old_same}; its "
+                f"phase split per direction (level launch, lane 0):"
+                + "".join(f" {k}:" + split_text(v)
+                          for k, v in old_split.items())
+                + f" in turns: kernel {turns['kernel']:.4f} ms, baseline "
+                f"{turns['baseline']:.4f} ms; {card}")
+            assert all(old_same.values()), (head, old_same)
+        cases.append(case)
+        stage = stages.setdefault(rec["stage"], dict(
+            ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0,
+            baseline_turns_ms=0.0, kernel_turns_ms=0.0))
         stage["ms"] += ms
         stage["plain_ms"] += plain_ms
         stage["bound_ms"] += b_ms
         stage["launches"] += 1
+        if baseline is not None:
+            stage["kernel_turns_ms"] += case["turns"]["kernel"]
+            stage["baseline_turns_ms"] += case["turns"]["baseline"]
     # every case held on its settled lanes; the search as a whole settles
     assert n_settled > 0, "no lane of the search settles"
     search = {k: sum(st[k] for st in stages.values())
-              for k in ("ms", "plain_ms", "bound_ms", "launches")}
+              for k in ("ms", "plain_ms", "bound_ms", "launches",
+                        "kernel_turns_ms", "baseline_turns_ms")}
     by_bytes = sum(c["bound_ms"] for c in cases if c["bound_by"] == "bytes")
     search["bound_by"] = ("bytes" if 2 * by_bytes >= search["bound_ms"]
                           else "operations")
@@ -2545,6 +2789,16 @@ def sim3_phase(torch, card):
     log(f"[lm] Sim(3) constraint search ({search['launches']} launches): "
         f"kernel {search['ms']:.4f} ms, plain {search['plain_ms']:.3f} ms, "
         f"bound {search['bound_ms']:.5f} ms ({search['bound_by']}); {card}")
+    if baseline is not None:
+        log(f"[lm] Sim(3) constraint search in turns: kernel "
+            f"{search['kernel_turns_ms']:.4f} ms ({search['launches']} "
+            f"launches), commit 681971f's kernel "
+            f"{search['baseline_turns_ms']:.4f} ms "
+            f"({sum(c['baseline_launches'] for c in cases)} launches); "
+            f"{card}")
+    # a three-stage search: two levels at (4,3), one at (2,2) and (1,1),
+    # each final pass inside its stage's last launch
+    assert search["launches"] == 4, search
     return dict(cases=cases, stages=stages, search=search,
                 max_abs_err=worst)
 
@@ -3600,6 +3854,7 @@ def warmup_run(mode: str) -> int:
         st = seen[0].stats.snapshot()
         out["warmup_sim3_syncs"] = st.get("sim3_syncs", 0)
         out["warmup_searches"] = st.get("sim3_stage0_n", 0)
+        out["warmup_search_launches"] = search_launches(st)
         out["warmup_fused"] = stencil.FUSED_LAUNCHES
         out["warmup_segment_sum"] = scatter.LAUNCHES
         out["warmup_segment_order"] = scatter.ORDER_LAUNCHES
@@ -3654,7 +3909,7 @@ def warmup_phase(card):
     assert w["warmup_segment_order"] > 0 and w["warmup_lm"] > 0
     # its constraint searches ran on the kernel and pulled no Sim(3) flag
     assert w["warmup_searches"] > 0 and w["warmup_sim3_syncs"] == 0, w
-    assert w["warmup_sim3"] >= 6 * w["warmup_searches"], w
+    assert w["warmup_sim3"] == w["warmup_search_launches"], w
     SEGMENT_LAUNCHES["warmup"] = w["warmup_segment_sum"]
     ORDER_LAUNCHES["warmup"] = w["warmup_segment_order"]
     LM_LAUNCHES["warmup"] = w["warmup_lm"]
@@ -3793,21 +4048,22 @@ def lm_route(route: str):
     """Inside, the trackers' LM loops run as `route` says: "kernel" (the
     engine's own), "plain" (every LM loop on its plain version on the card
     as well: `tracking.lm.level_plain` and the Sim(3) tracker's
-    `level_plain` / `final_pass_plain`, one flag pull per trial, the host
+    `levels_plain` (`level_plain`, `final_pass_plain`), one flag pull per
+    trial, the host
     loops the port ran before the kernels) or "sim3-plain" (only the
     Sim(3) loop so: the port before this kernel); for `--lm-turns` only."""
     from lsd_slam_tpu_torch.tracking import lm
     from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
 
-    real = lm.level, st3.level, st3.final_pass
+    real = lm.level, st3.levels
     if route == "plain":
         lm.level = lm.level_plain
     if route in ("plain", "sim3-plain"):
-        st3.level, st3.final_pass = st3.level_plain, st3.final_pass_plain
+        st3.levels = st3.levels_plain
     try:
         yield
     finally:
-        lm.level, st3.level, st3.final_pass = real
+        lm.level, st3.levels = real
 
 
 def lm_turns(torch, card):
@@ -3877,6 +4133,11 @@ def main() -> int:
                     help="baselines/lm_track_04f70d1_stamped.cu (checked by "
                     "its sha256), for its phase split, its bits and its ms "
                     "in turns in [lm]")
+    ap.add_argument("--baseline-sim3-cu",
+                    help="baselines/sim3_track_681971f_stamped.cu (checked "
+                    "by its sha256), for its bits at every cluster size, "
+                    "its phase split and its ms in turns in [lm]'s Sim(3) "
+                    "cases")
     ap.add_argument("--pipeline-turns", action="store_true",
                     help="only time lag 0 against lag 3, in turns")
     ap.add_argument("--lm-turns", action="store_true",
@@ -3956,6 +4217,16 @@ def main() -> int:
                   "source whose ABI --baseline-lm-cu binds", file=sys.stderr)
             return 2
         extra["lm_baseline"] = os.path.abspath(args.baseline_lm_cu)
+    if args.baseline_sim3_cu:
+        with open(args.baseline_sim3_cu, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        if digest != SIM3_STAMPED_SHA256:
+            print(f"chip_smoke: {args.baseline_sim3_cu} (sha256 {digest}) "
+                  "is not baselines/sim3_track_681971f_stamped.cu, the only "
+                  "source whose ABI --baseline-sim3-cu binds",
+                  file=sys.stderr)
+            return 2
+        extra["sim3_baseline"] = os.path.abspath(args.baseline_sim3_cu)
     secs = build.build(verbose=True, sources=extra)
     log(f"[build] {json.dumps(secs)} total {time.perf_counter() - t0:.2f} s")
     if args.pipeline_turns:
@@ -3964,10 +4235,13 @@ def main() -> int:
     if args.lm_turns:
         lm_turns(torch, card)
         return 0
-    lm_base = None
+    lm_base = sim3_base = None
     if "lm_baseline" in extra:
         lm_base = ctypes.CDLL(str(build.library_path(
             "lm_baseline", extra["lm_baseline"])))
+    if "sim3_baseline" in extra:
+        sim3_base = ctypes.CDLL(str(build.library_path(
+            "sim3_baseline", extra["sim3_baseline"])))
     if args.lm_only:
         with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
                                "vo_orbit_640x480.json")) as f:
@@ -3975,7 +4249,7 @@ def main() -> int:
         with recorded_lm_inputs() as vo_levels:
             run_vo(torch, ref, profile=False)
         lm_phase(torch, card, vo_levels, lm_base)
-        sim3_phase(torch, card)
+        sim3_phase(torch, card, sim3_base)
         return 0
     baseline = walk = None
     if "segment_sum_walk" in extra:
@@ -4118,7 +4392,7 @@ def main() -> int:
 
     # ---- 19. the LM level kernel against its plain version ----
     lm_row = lm_phase(torch, card, vo_levels, lm_base)
-    sim3_row = sim3_phase(torch, card)
+    sim3_row = sim3_phase(torch, card, sim3_base)
     phase_done("lm")
 
     # ---- 5. SLAM at full width ----
@@ -4285,7 +4559,9 @@ def main() -> int:
              path_launches=SIM3_LAUNCHES,
              max_abs_err=sim3_row["max_abs_err"],
              shape="[slam]'s first three-stage constraint search at "
-                   "640x480: every level and final pass, both directions",
+                   "640x480: one launch a level over both directions, "
+                   "each stage's final pass inside its last launch",
+             search_launches=sim3_row["search"]["launches"],
              ms=sim3_row["search"]["ms"],
              plain_ms=sim3_row["search"]["plain_ms"],
              bound_ms=sim3_row["search"]["bound_ms"],

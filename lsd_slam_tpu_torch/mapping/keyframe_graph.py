@@ -426,7 +426,8 @@ class KeyFrameGraph:
     def test_constraints_batch(self, new_kf, cands, inits, stricts):
         """Coarse-to-fine testConstraint (SlamSystem.cpp:1129-1216) over all
         candidates: per level range (4,3), (2,2), (1,1), the two reciprocal
-        directions run as two batched Sim3 tracks over the live candidates,
+        directions run as one pair of batched Sim3 tracks over the live
+        candidates (`track_pair_packed`),
         re-compacted between stages. Returns (e1, e2) or None per
         candidate."""
         kcfg = self.system.cfg.keyframe
@@ -457,14 +458,14 @@ class KeyFrameGraph:
                               + [ident] * (pad - m))
             f_to_c = np.stack([f_to_c_all[i] for i in live]
                               + [ident] * (pad - m))
-            pk_ba, s_ba = self.sim3_tracker.track_batch_frames_packed(
-                new_ref, stacked, np.asarray(c_to_f, np.float32), ls, le)
-            pk_ab, s_ab = self.sim3_tracker.track_batch_packed(
-                stacked, new_ref, np.asarray(f_to_c, np.float32), ls, le)
+            # both directions together: one launch per level on the card
+            pk_ba, pk_ab, syncs = self.sim3_tracker.track_pair_packed(
+                new_ref, stacked, np.asarray(c_to_f, np.float32),
+                np.asarray(f_to_c, np.float32), ls, le)
             both = torch.stack([pk_ba, pk_ab]).cpu().numpy().astype(
                 np.float64)                                  # one pull
             ba, ab = both[0], both[1]
-            self._bump("sim3_syncs", s_ba + s_ab)
+            self._bump("sim3_syncs", syncs)
             self._bump("backend_pulls")
             ba_pose = ba[:, SP["frame_to_ref"]]
             ab_pose = ab[:, SP["frame_to_ref"]]

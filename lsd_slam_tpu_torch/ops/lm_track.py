@@ -12,18 +12,21 @@ falls back.
 
 `sim3_level` does the same for the Sim(3) tracker's loop
 (lsd_slam_tpu/tracking/sim3_tracker.py:265-314) with the kernel
-`csrc/sim3_track.cu`, of the same design; with no trials it is the
-tracker's final pass. Its plain versions are `tracking/sim3_tracker.py`
-`level_plain` and `final_pass_plain`, and `level` / `final_pass` there
-route as `tracking.lm.level` does.
+`csrc/sim3_track.cu`, of the same design, over a table of one or two lane
+sets (a constraint stage's two directions in one launch), with the
+tracker's final pass after the loop (with no trials, that pass alone).
+Its plain versions are `tracking/sim3_tracker.py` `level_plain` and
+`final_pass_plain`, and `levels` / `final_pass` there route as
+`tracking.lm.level` does.
 
 The launch's shape is pure functions of the inputs and the card, tested
 on the CPU: `tree_layout` cuts a lane's points into the sum tree's
 chunks (from the point count alone, so the bits do not depend on C),
 `choose_cluster` picks C from the lane count, the point count, the SM
-count and the largest cluster the card schedules (`max_cluster`, asked
-of the card once per device), and `launch_layout` sizes each block's
-staged share of the points.
+count, the largest cluster the card schedules (`max_cluster`, asked of
+the card once per device) and, for `sim3_level`, how many clusters of
+each size the card holds at once (`sim3_active_clusters`), and
+`launch_layout` sizes each block's staged share of the points.
 
 The wrapper takes tensors and scalars only (the point fields, the
 schedule's constants as a mapping) and returns tensors; `tracking.lm`
@@ -72,12 +75,13 @@ TILE_BYTES = 16 * 32 * 33 * 4
 STAGE_POINT_BYTES = 17
 STAGE_BYTES = 140 * 1024
 STAGE_CAP = STAGE_BYTES // STAGE_POINT_BYTES
-# sim3_level: tiles of 32 x 43 f32 terms (8 warps), then 25 B a staged
-# point (int32 index, five f32, the valid byte), within the 227 KB a block
-# may have beside its ~6 KB of static shared memory
+# sim3_level: tiles of 32 x 43 f32 terms (8 warps), then 33 B a staged
+# point (its eight pose-free f32 terms and the valid byte), up to 63 KB:
+# with its ~6 KB of static shared memory a block then takes at most half
+# of an SM's 227 KB, so two fit an SM (more clusters at once)
 SIM3_TILE_BYTES = 8 * 32 * 43 * 4
-SIM3_STAGE_POINT_BYTES = 25
-SIM3_STAGE_BYTES = 160 * 1024
+SIM3_STAGE_POINT_BYTES = 33
+SIM3_STAGE_BYTES = 63 * 1024
 SIM3_STAGE_CAP = SIM3_STAGE_BYTES // SIM3_STAGE_POINT_BYTES
 # the per-lane values a final pass returns: the coupled, depth and
 # photometric mean residuals, the usage sum and A (7 x 7)
@@ -127,14 +131,17 @@ def tree_layout(n_points: int):
 
 
 def choose_cluster(lanes: int, n_points: int, sm_count: int,
-                   max_cluster: int) -> int:
+                   max_cluster: int, active=None) -> int:
     """The blocks of a lane's cluster: the largest power of two C with
     C <= max_cluster (what the card schedules, at most CLUSTER_MAX),
-    lanes * C <= sm_count (every cluster of the launch on the card at
-    once) and C <= the sum tree's chunks (at least one a block)."""
+    lanes * C <= sm_count, C <= the sum tree's chunks (at least one a
+    block) and, given `active` (C -> the clusters of C blocks the card
+    holds at once at this launch's shared memory), active(C) >= lanes:
+    every cluster of the launch on the card at once."""
     most = min(max_cluster, CLUSTER_MAX, tree_layout(n_points)[0])
     c = 1
-    while 2 * c <= most and lanes * 2 * c <= sm_count:
+    while (2 * c <= most and lanes * 2 * c <= sm_count
+           and (active is None or active(2 * c) >= lanes)):
         c *= 2
     return c
 
@@ -169,15 +176,15 @@ def max_cluster(device: torch.device, sim3: bool = False) -> int:
     dev = torch.cuda.current_device() if dev is None else dev
     got = _MAX_CLUSTER.get((dev, sim3))
     if got is None:
-        with torch.cuda.device(dev):
-            if sim3:
-                fn = _library("sim3_track").lsd_sim3_max_cluster
-                smem = SIM3_TILE_BYTES + _stage_bytes(SIM3_STAGE_CAP, True)
-            else:
+        if sim3:
+            smem = SIM3_TILE_BYTES + _stage_bytes(SIM3_STAGE_CAP, True)
+            got = next((c for c in (16, 8, 4, 2, 1) if c <= CLUSTER_MAX
+                        and sim3_active_clusters(dev, c, smem) > 0), 0)
+        else:
+            with torch.cuda.device(dev):
                 fn = _library().lsd_lm_max_cluster
-                smem = TILE_BYTES + _stage_bytes(STAGE_CAP)
-            fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
-            got = fn(smem)
+                fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+                got = fn(TILE_BYTES + _stage_bytes(STAGE_CAP))
         if got < 1:
             name = "sim3_level" if sim3 else "lm_level"
             raise RuntimeError(f"{name}: the card schedules no cluster "
@@ -368,13 +375,27 @@ def lm_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor], frame_quad,
             out_trials.reshape(lead), out_its.reshape(lead))
 
 
+class Sim3Set(ctypes.Structure):
+    """One set of `sim3_level`'s lane table (`LsdSim3Set` in
+    csrc/sim3_track.cu): its point fields and quad layouts, each shared by
+    the set's lanes (stride 0) or one per lane."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "idx", "ival", "gx", "gy", "idp", "ivr", "valid", "quad")] + [
+        ("pts_stride", ctypes.c_longlong), ("pts_step", ctypes.c_longlong),
+        ("quad_stride", ctypes.c_longlong), ("lanes", ctypes.c_int)]
+
+
+# the lane table's sets: a constraint stage's two directions
+SIM3_SETS = 2
+
+
 class Sim3Params(ctypes.Structure):
     """`sim3_level`'s by-value constants (`LsdSim3Params` in
     csrc/sim3_track.cu)."""
 
     _fields_ = [
-        ("pts_stride", ctypes.c_longlong), ("quad_stride", ctypes.c_longlong),
-        ("pts_step", ctypes.c_longlong),
+        ("sets", Sim3Set * SIM3_SETS),
         ("n_points", ctypes.c_int), ("quad_rows", ctypes.c_int),
         ("w", ctypes.c_int), ("h", ctypes.c_int),
         ("fx", ctypes.c_float), ("fy", ctypes.c_float),
@@ -395,18 +416,22 @@ class Sim3Params(ctypes.Structure):
 
 def make_sim3_params(cam: Camera, cfg: TrackerConfig, sigma2: float,
                      min_points: float, max_its: int, max_trials: int,
-                     n_points: int, quad_rows: int, pts_stride: int,
-                     pts_step: int, quad_stride: int, cluster: int = 1
+                     n_points: int, quad_rows: int,
+                     sets: Sequence[Sim3Set] = (), cluster: int = 1
                      ) -> Sim3Params:
     """The constants of one `sim3_level` launch; each float is the f32 the
     plain version's torch op uses for the same Python constant (the
     schedule's from `cfg`, as tracking/sim3_tracker.py `level_plain` reads
-    them)."""
+    them). `sets`: the lane table's sets in lane order (an absent set has
+    no lanes)."""
     h, w = cam.height, cam.width
     chunk, leaves, staged, _ = launch_layout(n_points, cluster, sim3=True)
+    if len(sets) > SIM3_SETS:
+        raise ValueError(f"sim3_level: {len(sets)} lane sets, at most "
+                         f"{SIM3_SETS}")
     return Sim3Params(
-        pts_stride=pts_stride, quad_stride=quad_stride, pts_step=pts_step,
-        n_points=n_points, quad_rows=quad_rows, w=w, h=h,
+        sets=(Sim3Set * SIM3_SETS)(*sets), n_points=n_points,
+        quad_rows=quad_rows, w=w, h=h,
         fx=_f32(cam.fx), fy=_f32(cam.fy), cx=_f32(cam.cx), cy=_f32(cam.cy),
         fx_half=_f32(cam.fx * 0.5), fy_half=_f32(cam.fy * 0.5),
         u_hi=_f32(w - 1.001), v_hi=_f32(h - 1.001),
@@ -419,7 +444,7 @@ def make_sim3_params(cam: Camera, cfg: TrackerConfig, sigma2: float,
         chunk=chunk, leaves=leaves, staged=staged)
 
 
-_SIM3_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + [
+_SIM3_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p, ctypes.c_void_p]
 
 
@@ -429,6 +454,37 @@ def _sim3_entry():
         fn.restype = ctypes.c_int
         fn.argtypes = _SIM3_ARGTYPES
     return fn
+
+
+_ACTIVE = {}
+
+
+def sim3_active_clusters(device: torch.device, cluster: int,
+                         smem: int) -> int:
+    """How many clusters of `cluster` blocks of `sim3_level`, at `smem`
+    bytes of dynamic shared memory a block, the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0: it schedules none), asked of the
+    card once per device, size and shared memory."""
+    dev = torch.device(device).index
+    dev = torch.cuda.current_device() if dev is None else dev
+    key = (dev, cluster, smem)
+    got = _ACTIVE.get(key)
+    if got is None:
+        fn = _library("sim3_track").lsd_sim3_active_clusters
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+        with torch.cuda.device(dev):
+            got = fn(cluster, smem)
+        if got < 0:
+            raise RuntimeError(f"sim3_level: cudaOccupancyMaxActiveClusters "
+                               f"failed (cudaError {-got})")
+        _ACTIVE[key] = got
+    return got
+
+
+def sim3_stamp_slots(max_trials: int) -> int:
+    """Entries of `sim3_level`'s stamp buffer: 3 for each of the
+    1 + max_trials passes and the final pass, and the end."""
+    return 3 * (int(max_trials) + 2) + 1
 
 
 SIM3_POINT_FIELDS = ("idx", "ival", "gx", "gy", "idp", "ivr", "valid")
@@ -462,42 +518,9 @@ def _sim3_points(points: Sequence[torch.Tensor], lanes: int):
     return fields, lane_stride, t.stride(-1), t.shape[-1]
 
 
-def sim3_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor],
-               frame_quad, cam: Camera, cfg: TrackerConfig, sigma2: float,
-               min_points: float, max_its: int, max_trials: int,
-               final: bool = False, cluster: int = None):
-    """One launch of the Sim(3) level loop for the lanes of `pose` ((B, 8)
-    f32 on a CUDA device), the affine pair (B,) f32; `points` the point
-    fields (SIM3_POINT_FIELDS), each (N,) shared or (B, N), strided or
-    not; the quad layout (H*W, 20) shared or (B, H*W, 20); `cam` the
-    level's camera, `cfg` the tracker's constants, `min_points` the
-    in-image count below which the level diverges, the loop's
-    `max_its` / `max_trials` (0 and 0: the one pass of the final Hessian).
-    Returns (pose, aff_a, aff_b, last_err, diverged, trials, its, final)
-    with `final` None, or with `final=True` (B, SIM3_FINAL): the accepted
-    pass's coupled, depth and photometric mean residuals, its usage sum and
-    its A (7 x 7, symmetric). `cluster` forces the blocks per lane (a power
-    of two up to the card's `max_cluster(..., sim3=True)`), for
-    measurement only."""
-    global SIM3_LAUNCHES
-    dev = pose.device
-    if dev.type != "cuda":
-        raise ValueError(f"sim3_level: unsupported device {dev}")
-    if dev.index is not None and dev.index != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            return sim3_level(pose, aff_a, aff_b, points, frame_quad, cam,
-                              cfg, sigma2, min_points, max_its, max_trials,
-                              final, cluster)
-    if pose.dtype != torch.float32 or pose.dim() != 2 or pose.shape[-1] != 8:
-        raise ValueError(f"sim3_level: pose must be f32 (B, 8), got "
-                         f"{pose.dtype} {tuple(pose.shape)}")
-    pose = pose.contiguous()
-    lanes = pose.shape[0]
-    a_in, b_in = (torch.as_tensor(x, dtype=torch.float32, device=dev)
-                  .reshape(-1).expand(lanes).contiguous()
-                  for x in (aff_a, aff_b))
-    fields, pstride, pstep, n_points = _sim3_points(points, lanes)
-    quad = frame_quad
+def _sim3_quad(quad: torch.Tensor, lanes: int):
+    """The quad layout as the kernel reads it: (contiguous tensor, lane
+    stride in floats), one (H*W, 20) layout shared or one per lane."""
     if quad.dtype != torch.float32:
         raise TypeError(f"sim3_level: frame_quad must be f32, got "
                         f"{quad.dtype}")
@@ -507,29 +530,95 @@ def sim3_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor],
                          f"{tuple(quad.shape)} is neither one (H*W, 20) "
                          f"layout nor one per lane of {lanes}")
     quad = quad.contiguous()
-    qstride = quad[0].numel() if quad.dim() == 3 else 0
     if quad.data_ptr() % 16:
         raise ValueError("sim3_level: the quad layout must start on a "
                          "16-byte boundary (the kernel reads rows as float4)")
-    quad_rows = quad.shape[-2]
+    return quad, quad[0].numel() if quad.dim() == 3 else 0
+
+
+def sim3_level(pose, aff_a, aff_b, sets, cam: Camera, cfg: TrackerConfig,
+               sigma2: float, min_points: float, max_its: int,
+               max_trials: int, final: bool = False, cluster: int = None,
+               stamps: torch.Tensor = None):
+    """One launch of the Sim(3) level loop for the lanes of `pose` ((B, 8)
+    f32 on a CUDA device), the affine pair (B,) f32 or a number. `sets` is
+    the lane table, one or two (points, frame_quad, lanes) in the order of
+    `pose`'s rows (their lanes add up to B): the point fields
+    (SIM3_POINT_FIELDS), each (N,) shared by the set's lanes or (lanes, N),
+    strided or not, N the same in every set (the level's compaction
+    budget), and the quad layout (H*W, 20) shared or (lanes, H*W, 20).
+    `cam` is the level's camera, `cfg` the tracker's constants,
+    `min_points` the in-image count below which the level diverges,
+    `max_its` / `max_trials` the loop's. Returns (pose, aff_a, aff_b,
+    last_err, diverged, trials, its, final) over all B lanes with `final`
+    None, or with `final=True` (B, SIM3_FINAL): the final pass's coupled,
+    depth and photometric mean residuals, its usage sum and its A (7 x 7,
+    symmetric), at the loop's result, run by the same launch after its
+    loop (with max_trials = 0: the pass alone, at `pose`). `cluster`
+    forces the blocks per lane (a power of two up to the card's
+    `max_cluster(..., sim3=True)`) and `stamps` (int64,
+    `sim3_stamp_slots(max_trials)` long) takes the first lane's leader
+    thread's `clock64()` per pass (see csrc/sim3_track.cu), for
+    measurement only."""
+    global SIM3_LAUNCHES
+    dev = pose.device
+    if dev.type != "cuda":
+        raise ValueError(f"sim3_level: unsupported device {dev}")
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return sim3_level(pose, aff_a, aff_b, sets, cam, cfg, sigma2,
+                              min_points, max_its, max_trials, final,
+                              cluster, stamps)
+    if pose.dtype != torch.float32 or pose.dim() != 2 or pose.shape[-1] != 8:
+        raise ValueError(f"sim3_level: pose must be f32 (B, 8), got "
+                         f"{pose.dtype} {tuple(pose.shape)}")
+    pose = pose.contiguous()
+    lanes = pose.shape[0]
+    a_in, b_in = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                  .reshape(-1).expand(lanes).contiguous()
+                  for x in (aff_a, aff_b))
+    if not 1 <= len(sets) <= SIM3_SETS:
+        raise ValueError(f"sim3_level: {len(sets)} lane sets, expected 1 to "
+                         f"{SIM3_SETS}")
+    if sum(int(n) for _, _, n in sets) != lanes:
+        raise ValueError(f"sim3_level: the lane sets hold "
+                         f"{[int(n) for _, _, n in sets]} lanes, the pose "
+                         f"{lanes}")
+    # the table holds raw pointers: `keep` holds the tensors (contiguous
+    # copies among them) until the launch is enqueued
+    table, keep, shapes = [], [], set()
+    for points, frame_quad, n in sets:
+        fields, pstride, pstep, n_points = _sim3_points(points, int(n))
+        quad, qstride = _sim3_quad(frame_quad, int(n))
+        for t in fields + [quad]:
+            if t.device != dev:
+                raise ValueError(f"sim3_level: a tensor on {t.device}, pose "
+                                 f"on {dev}")
+        shapes.add((n_points, quad.shape[-2]))
+        keep += fields + [quad]
+        table.append(Sim3Set(*(t.data_ptr() for t in fields + [quad]),
+                             pts_stride=pstride, pts_step=pstep,
+                             quad_stride=qstride, lanes=int(n)))
+    if len(shapes) != 1:
+        raise ValueError(f"sim3_level: the lane sets' (points, quad rows) "
+                         f"differ: {sorted(shapes)}; a launch runs one "
+                         "level")
+    (n_points, quad_rows), = shapes
     if quad_rows * 20 >= 2 ** 31 or cam.width * cam.height >= 2 ** 31:
         raise ValueError("sim3_level: image too large for 32-bit indices")
-    for t in fields + [quad, a_in, b_in]:
-        if t.device != dev:
-            raise ValueError(f"sim3_level: a tensor on {t.device}, pose on "
-                             f"{dev}")
 
     most = max_cluster(dev, sim3=True)
     if cluster is None:
-        cluster = choose_cluster(lanes, n_points,
-                                 torch.cuda.get_device_properties(
-                                     dev).multi_processor_count, most)
+        cluster = choose_cluster(
+            lanes, n_points,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            most, lambda c: sim3_active_clusters(
+                dev, c, launch_layout(n_points, c, sim3=True)[3]))
     elif cluster < 1 or cluster & (cluster - 1) or cluster > most:
         raise ValueError(f"sim3_level: cluster {cluster} is not a power of "
                          f"two up to {most}")
     prm = make_sim3_params(cam, cfg, sigma2, min_points, max_its, max_trials,
-                           n_points, quad_rows, pstride, pstep, qstride,
-                           cluster)
+                           n_points, quad_rows, table, cluster)
     smem = launch_layout(n_points, cluster, sim3=True)[3]
     out_pose = torch.empty_like(pose)
     out_a = torch.empty(lanes, dtype=torch.float32, device=dev)
@@ -540,13 +629,21 @@ def sim3_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor],
     out_its = torch.empty_like(out_trials)
     out_final = (torch.empty(lanes, SIM3_FINAL, dtype=torch.float32,
                              device=dev) if final else None)
+    stamp_ptr = 0
+    if stamps is not None:
+        slots = sim3_stamp_slots(max_trials)
+        if (stamps.device != dev or stamps.dtype != torch.int64
+                or not stamps.is_contiguous() or stamps.numel() < slots):
+            raise ValueError("sim3_level: stamps must be a contiguous int64 "
+                             f"tensor on {dev} of {slots} entries or more")
+        stamp_ptr = stamps.data_ptr()
     rc = _sim3_entry()(
-        *(t.data_ptr() for t in fields), quad.data_ptr(), pose.data_ptr(),
-        a_in.data_ptr(), b_in.data_ptr(), out_pose.data_ptr(),
-        out_a.data_ptr(), out_b.data_ptr(), out_err.data_ptr(),
-        out_div.data_ptr(), out_trials.data_ptr(), out_its.data_ptr(),
-        0 if out_final is None else out_final.data_ptr(), lanes, cluster,
-        smem, ctypes.byref(prm), torch.cuda.current_stream().cuda_stream)
+        pose.data_ptr(), a_in.data_ptr(), b_in.data_ptr(),
+        out_pose.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
+        out_err.data_ptr(), out_div.data_ptr(), out_trials.data_ptr(),
+        out_its.data_ptr(), 0 if out_final is None else out_final.data_ptr(),
+        stamp_ptr, lanes, cluster, smem, ctypes.byref(prm),
+        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sim3_level kernel launch failed: cudaError {rc}")
     with _COUNT_LOCK:

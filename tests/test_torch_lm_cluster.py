@@ -302,10 +302,13 @@ def _sim3_scene(device):
 @pytest.mark.cuda
 def test_sim3_track_on_the_card_launches_its_kernel(monkeypatch):
     """A 4-lane Sim(3) batch on CUDA tensors (the pair, twice, and a zero
-    padding set) launches `sim3_level` once per level and once for the
-    final pass, never the plain loop, pulls nothing (n_syncs 0), and each
-    level's launch at C = 1, at the card's largest C and at the chosen one
-    gives the same bits."""
+    padding set) launches `sim3_level` once per level, the final pass
+    inside the last level's launch, never the plain loop, pulls nothing
+    (n_syncs 0); both directions of a stage together launch once per
+    level too, each with the bits of its own call; each level's launch at
+    C = 1, at the card's largest C and at the chosen one gives the same
+    bits, and its fused final pass the bits of the final pass launched on
+    its own at the level's result."""
     _card()
     from lsd_slam_tpu_torch.config import TrackerConfig
     from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
@@ -321,16 +324,16 @@ def test_sim3_track_on_the_card_launches_its_kernel(monkeypatch):
     levels = (3, 2)
     stacked = st3.stack_refs([ref, ref, ref, zero], levels)
     calls = []
-    real = st3.level
+    real = st3.levels
 
     def spy(*a, **k):
-        calls.append(a)
+        calls.append((a, k))
         return real(*a, **k)
 
     def plain(*a, **k):
         raise AssertionError("plain Sim(3) loop reached with CUDA tensors")
 
-    monkeypatch.setattr(st3, "level", spy)
+    monkeypatch.setattr(st3, "levels", spy)
     monkeypatch.setattr(st3, "level_plain", plain)
     monkeypatch.setattr(st3, "final_pass_plain", plain)
     tracker = st3.Sim3Tracker(CAM, TrackerConfig(), sigma2=16.0)
@@ -338,20 +341,33 @@ def test_sim3_track_on_the_card_launches_its_kernel(monkeypatch):
     inits = torch.tensor([[1, 0, 0, 0, 0, 0, 0, 1]] * 4, dtype=torch.float32)
     res = tracker.track_batch(stacked, frame, inits, *levels)
     torch.cuda.synchronize()
-    assert lm_track.SIM3_LAUNCHES - before == 3 and res.n_syncs == 0
+    assert lm_track.SIM3_LAUNCHES - before == 2 and res.n_syncs == 0
     assert res.diverged.tolist() == [False, False, False, True]
+    one_ba, _ = tracker.track_batch_frames_packed(frame, stacked, inits,
+                                                  *levels)
+    one_ab, _ = tracker.track_batch_packed(stacked, frame, inits, *levels)
+    before = lm_track.SIM3_LAUNCHES
+    pk_ba, pk_ab, syncs = tracker.track_pair_packed(frame, stacked, inits,
+                                                    inits, *levels)
+    torch.cuda.synchronize()
+    assert lm_track.SIM3_LAUNCHES - before == 2 and syncs == 0
+    for x, y in ((pk_ba, one_ba), (pk_ab, one_ab)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
     most = lm_track.max_cluster(torch.device("cuda"), sim3=True)
-    for a in calls:
-        pose, aa, ab, pts, quad, cam, cfg, sigma2, min_pts, max_its = a
-        fields = tuple(getattr(pts, f) for f in lm_track.SIM3_POINT_FIELDS)
-        outs = [lm_track.sim3_level(pose, aa, ab, fields, quad, cam, cfg,
-                                    sigma2, min_pts, max_its,
+    for (tracks, cam, cfg, sigma2, min_pts, max_its), _ in calls:
+        pose, aa, ab, sets = st3.lane_table(tracks)
+        outs = [lm_track.sim3_level(pose, aa, ab, sets, cam, cfg, sigma2,
+                                    min_pts, max_its,
                                     max_its + 4 * cfg.max_lm_rejects,
                                     final=True, cluster=c)
                 for c in (1, most, None)]
+        alone = lm_track.sim3_level(outs[0][0], outs[0][1], outs[0][2], sets,
+                                    cam, cfg, sigma2, 0.0, 0, 0, final=True)
         torch.cuda.synchronize()
         for out in outs[1:]:
             for x, y in zip(out, outs[0]):
                 if x.is_floating_point():
                     x, y = x.view(torch.int32), y.view(torch.int32)
                 assert torch.equal(x, y)
+        assert torch.equal(alone[7].view(torch.int32),
+                           outs[0][7].view(torch.int32))

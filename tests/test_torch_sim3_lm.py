@@ -1,22 +1,28 @@
 """The Sim(3) tracker's level loop (lsd_slam_tpu_torch/tracking/sim3_tracker.py
-`level`, `final_pass`) against the JAX `_sim3_impl` it ports, on the
-keyframe pair of tests/test_torch_sim3.py (PlaneScene(seed=11), 160x128,
-ground-truth depth; its module-scoped fixtures), and the launch shape of
-its kernel `sim3_level` (ops/lm_track.py, csrc/sim3_track.cu).
+`levels`, `level`, `final_pass`) against the JAX `_sim3_impl` it ports,
+on the keyframe pair of tests/test_torch_sim3.py (PlaneScene(seed=11),
+160x128, ground-truth depth; its module-scoped fixtures), and the launch
+shape of its kernel `sim3_level` (ops/lm_track.py, csrc/sim3_track.cu).
 
-* `_sim3_impl` runs every level through `level` and ends with one
-  `final_pass`; for each constraint stage and both batch directions it
-  meets JAX at tests/test_torch_sim3.py's bounds (poses 2e-4, residuals
-  and usage 1e-3 relative, the Hessian 1e-3 of its largest entry, the
-  diverged flag equal);
+* `_sim3_impl` runs every level through `levels` and the final pass at
+  the last level's result; for each constraint stage and both batch
+  directions it meets JAX at tests/test_torch_sim3.py's bounds (poses
+  2e-4, residuals and usage 1e-3 relative, the Hessian 1e-3 of its
+  largest entry, the diverged flag equal);
+* the pair call (`track_pair_packed`, both directions of a stage
+  together, as the constraint search runs them) gives each direction's
+  pack of its own call bit for bit; the final values a level returns are
+  `final_pass_plain`'s at its result, bit for bit;
 * each lane of a batched `level_plain` gives the bits of the same lane
   run alone; a zero (padding) point set diverges on its first pass;
 * CPU tensors take the plain versions, the wrapper refuses any device but
   CUDA, and the kernel's constants are the f32 values torch uses;
 * a Python specification of the kernel's summation order over its 45
-  columns gives the same bits at every cluster size.
+  columns gives the same bits at every cluster size; the cluster choice
+  keeps every cluster of a launch resident by the card's table of active
+  clusters.
 
-On the card `level` launches `sim3_level`; that it meets the plain loop
+On the card `levels` launches `sim3_level`; that it meets the plain loop
 there is `chip_smoke.py`'s `[lm]` (its Sim(3) cases) and the `cuda`-marked
 test of tests/test_torch_lm_cluster.py.
 """
@@ -70,24 +76,25 @@ def _level_args(tcam, ref, frame, pose, lvl, cfg=TrackerConfig()):
 @pytest.mark.parametrize("levels", LEVELS)
 def test_impl_runs_level_and_final_pass_as_jax(stacked, levels, direction,
                                                 monkeypatch):
-    """One constraint stage in one direction: `_sim3_impl` calls `level`
-    once per level, coarse to fine, and `final_pass` once at the final
-    level, and its pack meets JAX's `_sim3_impl` on every live lane."""
+    """One constraint stage in one direction: `_sim3_impl` calls `levels`
+    once per level, coarse to fine, the last one with the final pass,
+    which on the CPU is `final_pass_plain` at the final level's result,
+    and its pack meets JAX's `_sim3_impl` on every live lane."""
     tcam, tstack, tref_b, runs = stacked
     i_refs, w_refs, i_frames, w_frames = runs[levels]
     seen = []
-    real_level, real_final = st3.level, st3.final_pass
+    real_levels, real_final = st3.levels, st3.final_pass_plain
 
-    def level(*a, **k):
-        seen.append(("level", a[5].width))
-        return real_level(*a, **k)
+    def levels_seen(tracks, cam, *a, **k):
+        seen.append(("level", cam.width))
+        return real_levels(tracks, cam, *a, **k)
 
     def final(*a, **k):
         seen.append(("final", a[5].width))
         return real_final(*a, **k)
 
-    monkeypatch.setattr(st3, "level", level)
-    monkeypatch.setattr(st3, "final_pass", final)
+    monkeypatch.setattr(st3, "levels", levels_seen)
+    monkeypatch.setattr(st3, "final_pass_plain", final)
     ts = st3.Sim3Tracker(tcam, TrackerConfig(), sigma2=SIGMA2)
     if direction == "refs":
         got, syncs = ts.track_batch_packed(tstack, tref_b, i_refs, *levels)
@@ -173,6 +180,9 @@ def test_cpu_tensors_take_the_plain_version(stacked, monkeypatch):
     want = st3.final_pass_plain(*args[:8])
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+    pair = st3.levels([args[:5], args[:5]], *args[5:])
+    for r in pair:
+        _same_bits(r, st3.level_plain(*args))
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -187,8 +197,9 @@ def test_kernel_wrapper_refuses_other_devices(stacked, device):
     with pytest.raises(ValueError, match="unsupported device"):
         lm_track.sim3_level(
             args[0], args[1], args[2],
-            [getattr(pts, f) for f in lm_track.SIM3_POINT_FIELDS], args[4],
-            args[5], args[6], SIGMA2, args[8], args[9], args[9] + 4)
+            [([getattr(pts, f) for f in lm_track.SIM3_POINT_FIELDS],
+              args[4], 4)], args[5], args[6], SIGMA2, args[8], args[9],
+            args[9] + 4)
     if device == "meta":
         with pytest.raises(ValueError, match="unsupported device"):
             st3.level(*args)
@@ -202,8 +213,12 @@ def test_params_round_like_the_plain_version(pair):
     caml = tcam.level(2)
     min_pts = 0.5 * cfg.min_goodperall_pixel_absmin * caml.height \
         * caml.width / 2
-    prm = lm_track.make_sim3_params(caml, cfg, SIGMA2, min_pts, 50, 70, 100,
-                                    1280, 200, 2, 0)
+    prm = lm_track.make_sim3_params(
+        caml, cfg, SIGMA2, min_pts, 50, 70, 100, 1280,
+        [lm_track.Sim3Set(pts_stride=200, pts_step=2, quad_stride=0,
+                          lanes=4),
+         lm_track.Sim3Set(pts_stride=0, pts_step=2, quad_stride=25600,
+                          lanes=4)])
     t = torch.tensor([3.0])
     for name, value in (("cx", caml.cx), ("fy", caml.fy),
                         ("u_hi", caml.width - 1.001),
@@ -218,20 +233,31 @@ def test_params_round_like_the_plain_version(pair):
         assert getattr(prm, name) == float(torch.tensor(value)), name
         # the rounding a torch op gives the Python scalar
         assert float(t * value) == float(t * getattr(prm, name)), name
-    assert (prm.pts_stride, prm.pts_step, prm.quad_stride) == (200, 2, 0)
+    assert [(t.pts_stride, t.pts_step, t.quad_stride, t.lanes)
+            for t in prm.sets] == [(200, 2, 0, 4), (0, 2, 25600, 4)]
     assert (prm.max_its, prm.max_trials, prm.use_esm) == (
         50, 70, int(cfg.use_esm_sim3))
     chunk, leaves, staged, _ = lm_track.launch_layout(100, 1, sim3=True)
     assert (prm.chunk, prm.leaves, prm.staged) == (chunk, leaves, staged)
 
 
-def _c_struct_fields():
+def _c_struct_fields(name="LsdSim3Params"):
+    """(type, name) of each field of `struct name` in the kernel's source;
+    a pointer's type is "pointer", an array's "type[n]"."""
     src = open(SOURCE).read()
-    body = re.search(r"struct LsdSim3Params \{(.*?)\n\};", src, re.S).group(1)
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
     fields = []
     for line in body.splitlines():
         line = line.split("//")[0].strip()
         if not line:
+            continue
+        m = re.fullmatch(r"const \w+\* (\w+);", line)
+        if m:
+            fields.append(("pointer", m.group(1)))
+            continue
+        m = re.fullmatch(r"(\w+) (\w+)\[(\d+)\];", line)
+        if m:
+            fields.append((f"{m.group(1)}[{m.group(3)}]", m.group(2)))
             continue
         m = re.fullmatch(r"(long long|int|float) (.+);", line)
         assert m, line
@@ -246,29 +272,54 @@ def _kernel_constants():
 
 
 def test_params_struct_and_sizes_match_the_kernel():
-    """`struct LsdSim3Params` in csrc/sim3_track.cu and
-    `ops.lm_track.Sim3Params` list the same fields with the same types in
-    the same order; the wrapper's tile bytes and final-pass width are the
-    kernel's."""
+    """`struct LsdSim3Params` and its lane table `struct LsdSim3Set` in
+    csrc/sim3_track.cu and `ops.lm_track.Sim3Params` / `Sim3Set` list the
+    same fields with the same types in the same order; the wrapper's tile
+    bytes, staged bytes a point and final-pass width are the kernel's."""
     ctype = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
-             "float": ctypes.c_float}
-    want = [(name, ctype[t]) for t, name in _c_struct_fields()]
-    assert [(n, t) for n, t in lm_track.Sim3Params._fields_] == want
+             "float": ctypes.c_float, "pointer": ctypes.c_void_p,
+             f"LsdSim3Set[{lm_track.SIM3_SETS}]":
+             lm_track.Sim3Set * lm_track.SIM3_SETS}
+    for struct, cls in (("LsdSim3Set", lm_track.Sim3Set),
+                        ("LsdSim3Params", lm_track.Sim3Params)):
+        want = [(name, ctype[t]) for t, name in _c_struct_fields(struct)]
+        got = [(n, t) for n, t in cls._fields_]
+        assert [n for n, _ in got] == [n for n, _ in want], struct
+        for (n, t), (_, w) in zip(got, want):
+            assert t == w or (ctypes.sizeof(t) == ctypes.sizeof(w)
+                              and t._type_ == w._type_
+                              and t._length_ == w._length_), (struct, n)
     const = _kernel_constants()
     warps = int(const["kThreads"]) // 32
     assert lm_track.SIM3_TILE_BYTES == warps * 32 * int(const["kSums"]) * 4
+    assert lm_track.SIM3_STAGE_POINT_BYTES == 4 * int(const["kStaged"]) + 1
     assert lm_track.SIM3_FINAL == 4 + 49 and const["kFinal"] == "4 + 49"
 
 
+# tables of active clusters (C -> clusters the card holds at once): every
+# SM free; seven GPCs that hold a cluster of 16
+ACTIVE = {"all": {1: 132, 2: 66, 4: 33, 8: 16, 16: 8},
+          "seven": {1: 132, 2: 66, 4: 32, 8: 16, 16: 7}}
+
+
+@pytest.mark.parametrize("active", sorted(ACTIVE))
 @pytest.mark.parametrize("lanes", [1, 4, 8, 16])
 @pytest.mark.parametrize("n_points", [300, 1200, 6272, 19200])
-def test_cluster_choice_and_layout(lanes, n_points):
-    """A stage's lanes (up to 16 padded) take the largest power-of-two C
-    whose clusters all fit on the card's 132 SMs at once (16 lanes: 8);
-    each block stages its share, within the shared memory a block has."""
-    c = lm_track.choose_cluster(lanes, n_points, 132, 16)
-    assert lanes * c <= 132 and (2 * c > 16 or lanes * 2 * c > 132
-                                 or 2 * c > lm_track.tree_layout(n_points)[0])
+def test_cluster_choice_and_layout(lanes, n_points, active):
+    """A launch's lanes (a stage's two directions, up to 32 padded) take
+    the largest power-of-two C whose clusters the card holds all at once
+    (its table of active clusters at the launch's shared memory; within
+    the 132 SMs): 8 lanes take 16 where the card holds 8 clusters of 16
+    and 8 where it holds 7; each block stages its share, within the shared
+    memory a block has."""
+    table = ACTIVE[active]
+    c = lm_track.choose_cluster(lanes, n_points, 132, 16, table.get)
+    leaves = lm_track.tree_layout(n_points)[0]
+    assert lanes * c <= 132 and (table[c] >= lanes or c == 1)
+    assert (2 * c > 16 or lanes * 2 * c > 132 or 2 * c > leaves
+            or table[2 * c] < lanes)
+    if lanes == 8 and n_points >= 6272:
+        assert c == (16 if active == "all" else 8)
     chunk, leaves, staged, smem = lm_track.launch_layout(n_points, c,
                                                          sim3=True)
     assert staged == min(leaves // c * chunk, n_points,
@@ -320,3 +371,67 @@ def test_summation_order_does_not_depend_on_the_cluster():
             assert _kernel_fold(col, c, warps, int(const["kMaxCluster"])) \
                 == want, (k, c)
             c *= 2
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("levels", LEVELS)
+def test_pair_call_gives_each_direction_its_own_bits(stacked, levels):
+    """A constraint stage's two directions in one call, as the constraint
+    search runs them (`track_pair_packed`: the candidates' stack with its
+    zero padding lane against reference b and back, from the JAX chain's
+    inits of this stage): each pack has the bits of its direction's own
+    call, and meets JAX on the live lanes; the flag pulls add up."""
+    tcam, tstack, tref_b, runs = stacked
+    i_refs, w_refs, i_frames, w_frames = runs[levels]
+    ts = st3.Sim3Tracker(tcam, TrackerConfig(), sigma2=SIGMA2)
+    pk_ba, pk_ab, syncs = ts.track_pair_packed(tref_b, tstack, i_frames,
+                                               i_refs, *levels)
+    one_ba, s_ba = ts.track_batch_frames_packed(tref_b, tstack, i_frames,
+                                                *levels)
+    one_ab, s_ab = ts.track_batch_packed(tstack, tref_b, i_refs, *levels)
+    assert _bits_equal(pk_ba, one_ba) and _bits_equal(pk_ab, one_ab)
+    assert syncs == s_ba + s_ab > 0
+    assert pk_ab[3, SP["diverged"]] == 1
+    for i in range(3):
+        _assert_pack_close(pk_ba.numpy().astype(np.float64)[i], w_frames[i])
+    for i in range(4):
+        _assert_pack_close(pk_ab.numpy().astype(np.float64)[i], w_refs[i])
+
+
+@pytest.mark.parametrize("lvl", [3, 1])
+def test_level_with_final_returns_the_final_pass_at_its_result(stacked,
+                                                               lvl):
+    """`levels(..., final=True)` on the plain path returns the level's
+    result and `final_pass_plain` at that result, bit for bit (what the
+    card's launch runs after its loop), and the same LevelResult as
+    without the final pass."""
+    tcam, tstack, tref_b, _ = stacked
+    rng = np.random.default_rng(7)
+    tan = rng.normal(0, [0.01] * 3 + [0.005] * 3 + [0.01], (4, 7))
+    args = _level_args(tcam, tstack, tref_b, st3.lie.sim3_exp(
+        torch.tensor(tan, dtype=torch.float32)), lvl)
+    (r, fin), = st3.levels([args[:5]], *args[5:], final=True)
+    _same_bits(r, st3.level(*args))
+    want = st3.final_pass_plain(r.pose, r.aff_a, r.aff_b, *args[3:8])
+    assert len(fin) == len(want) == 5
+    for x, y in zip(fin, want):
+        assert _bits_equal(x, y)
+    assert fin[0].shape == (4, 7, 7) and torch.equal(fin[0],
+                                                     fin[0].transpose(1, 2))
+
+
+def test_kernel_params_take_at_most_two_lane_sets(pair):
+    """The lane table has two sets (a stage's two directions); a third is
+    refused before anything reaches the kernel."""
+    _, tcam, _, _ = pair
+    cfg = TrackerConfig()
+    one = lm_track.Sim3Set(pts_step=1, lanes=2)
+    prm = lm_track.make_sim3_params(tcam.level(3), cfg, SIGMA2, 10.0, 5, 25,
+                                    300, 320, [one])
+    assert (prm.sets[0].lanes, prm.sets[1].lanes) == (2, 0)
+    with pytest.raises(ValueError, match="lane sets"):
+        lm_track.make_sim3_params(tcam.level(3), cfg, SIGMA2, 10.0, 5, 25,
+                                  300, 320, [one] * 3)
