@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (13, 17, 14 and 16 run right after 3, 19 after 4, 15 after 10,
-18 inside 12); any failure
+Phases (13, 17, 14 and 16 run right after 3, 19 and 20 after 4, 15
+after 10, 18 inside 12); any failure
 raises, so the script exits non-zero and prints no ok line:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every CUDA kernel of the port, from the sources in the
@@ -239,6 +239,33 @@ raises, so the script exits non-zero and prints no ok line:
                runner runs, [multihost] and [warmup] count `sim3_level`
                launches (one a level of every stage a search reached) and
                pull no Sim(3) LM flag.
+ 20. epl     — the observe sweep's three kernels (csrc/epl_stereo.cu:
+               `epl_prepare`, the per-pixel set-up; `epl_stereo`, the EPL
+               search of the compacted points; `observe_fuse`, the EKF
+               fusion and its counts) on [vo]'s sweep of the most active
+               points as the engine passed it and on [observe-multi]'s
+               inputs at K = 1, 3 and 8 and at K = 3 on a mixed state
+               (invalidated pixels, blacklist counters and high variances,
+               so creation, blacklisting and kills run): each kernel
+               against its plain version run on the CPU from the same
+               inputs (the card's set-up, compaction and results; the
+               fusion on every pixel, its counts equal), and the whole
+               sweep (`observe` / `observe_multi`) on the card against the
+               CPU port, under tests/test_torch_observe.py's bounds
+               (EPL_SHARE, EPL_RTOL, EPL_COUNTER_RTOL) on every pixel but
+               those whose fusion inputs differ in bits (`inputs_apart`);
+               the share of bit-equal points logged, also against the
+               plain versions with a correctly rounded sqrt
+               (`rounded_sqrt`); a second launch of each and a second
+               sweep bit for bit; CUDA-event ms of each kernel and of its plain version on
+               the card beside its bound (`epl_bounds`), the whole sweep's
+               device ms and host us per sweep against the plain route.
+               Then K = 10's two chunks: chunk 1 on the card and on the CPU
+               port, chunk 2 from the CPU's chunk-1 state on both. Every
+               card path ([vo], the SLAM phases, [observe-multi], [cli],
+               [multihost], [warmup]) launches the three kernels, once a
+               sweep each, and calls no plain version of the sweep
+               (OBSERVE_PLAIN).
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -289,6 +316,23 @@ with the stamp buffer added (any other file is refused, by its sha256),
 and at every launch of [lm]'s Sim(3) cases checks that it gives the same
 bits on every lane at every cluster size, prints its phase split per
 direction and its ms in turns with the current kernel (and the search's).
+
+    python3 chip_smoke.py --epl-only
+
+runs only the build, [vo] (its sweeps recorded) and [epl]: one short
+call.
+
+    python3 chip_smoke.py --epl-turns
+
+runs only the build and --lm-turns' sequences with the observe sweep on
+its kernels and on its plain torch route, in turns (kernel, plain, plain,
+kernel): fps, frame ms, the track and observe stages, switch frames.
+
+    python3 chip_smoke.py --threads-repeat N
+
+runs only [slam-threads] and [slam-production], N times each (the
+threaded modes are not deterministic), and prints whether each run holds
+its phase's bars; it exits non-zero if one does not.
 
     python3 chip_smoke.py --lm-turns
 
@@ -389,6 +433,23 @@ LM_CLUSTERS = {}
 # and final passes) in each path's run, and by cluster size
 SIM3_LAUNCHES = {}
 SIM3_CLUSTERS = {}
+# launches of the observe sweep's kernels (`epl_prepare`, `epl_stereo`,
+# `observe_fuse`: ops.epl_stereo.counts()) in each path's run
+EPL_LAUNCHES = {}
+# [epl], each kernel and each whole sweep against its plain version run on
+# the CPU from the same inputs: the bounds of tests/test_torch_observe.py
+# (codes and masks off on at most 0.2% of the points, inverse depths,
+# variances and EPL lengths to rtol 1e-4 where the codes agree, validity
+# counters and next-id fields to rtol 1e-6). The fusion's new state is held
+# on every pixel, its counts equal; in the whole sweep every pixel is held
+# but those whose fusion inputs differ in bits (`inputs_apart`), of which at
+# most 0.2% of the active points may be off (`check_state`)
+EPL_SHARE, EPL_RTOL, EPL_COUNTER_RTOL = 0.002, 1e-4, 1e-6
+# the f32 operations of one searched slot, counted from csrc/epl_stereo.cu:
+# 43 bilinear samples (clamps, group base, weights: ~24 each), the 34 x 5
+# SSD terms of each of the two scans (3 each), the endpoints, crop, pad and
+# clamp (~90), subpixel refinement (~60), triangulation and variance (~50)
+EPL_OPS_PER_SLOT = 43 * 24 + 2 * 34 * 5 * 3 + 90 + 60 + 50
 # [lm], the kernel against its plain version on the card: the bounds of
 # tests/test_torch_lm.py (pose, the level's error relative, the affine
 # pair; flags and trial and accept counts equal)
@@ -497,12 +558,33 @@ def random_state(torch, rng, h, w):
         var_sm.astype(np.float32), bl)]
 
 
+# the observe sweep's plain versions (depth/observe.py): none runs on a
+# card path
+OBSERVE_PLAIN = ("epl_setup_plain", "epl_search_plain", "fuse_plain",
+                 "make_epl", "make_epl_multi", "line_stereo",
+                 "line_stereo_points", "_fuse_results")
+
+
+def assert_epl_on_path(tag, counts, sweeps=None):
+    """The observe sweeps of a card run went through the three kernels:
+    each launched, once a sweep each (`sweeps`, when the caller knows
+    it)."""
+    EPL_LAUNCHES[tag] = dict(counts)
+    log(f"[{tag}] epl launches {counts}"
+        + ("" if sweeps is None else f" over {sweeps} sweeps"))
+    assert min(counts.values()) > 0, (tag, counts)
+    assert len(set(counts.values())) == 1, (tag, counts)
+    if sweeps is not None:
+        assert counts["epl_prepare"] == sweeps, (tag, counts, sweeps)
+
+
 @contextlib.contextmanager
 def counted_plain(stencil):
-    """Count the calls of the stencil's plain versions and of the LM
+    """Count the calls of the stencil's plain versions, of the LM
     loops' (`tracking.lm.level_plain`, the Sim(3) tracker's `level_plain`
-    and `final_pass_plain`) while inside; yields [all of them, the LM
-    loops']."""
+    and `final_pass_plain`) and of the observe sweep's (OBSERVE_PLAIN)
+    while inside; yields [all of them, the LM loops']."""
+    from lsd_slam_tpu_torch.depth import observe
     from lsd_slam_tpu_torch.tracking import lm
     from lsd_slam_tpu_torch.tracking import sim3_tracker as sim3
 
@@ -512,6 +594,8 @@ def counted_plain(stencil):
     plains[(lm, "level_plain")] = lm.level_plain
     for name in ("level_plain", "final_pass_plain"):
         plains[(sim3, name)] = getattr(sim3, name)
+    for name in OBSERVE_PLAIN:
+        plains[(observe, name)] = getattr(observe, name)
 
     def counted(fn, of_lm):
         def call(*a, **k):
@@ -907,7 +991,7 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     second pass under torch.profiler. Returns (fused launches on the path,
     the final state's planes for the kernel check, the busy share or
     None)."""
-    from lsd_slam_tpu_torch.ops import lm_track, scatter
+    from lsd_slam_tpu_torch.ops import epl_stereo, lm_track, scatter
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
 
     ref_file, traj_bound, rot_bound = SLAM_RUNS[tag]
@@ -920,6 +1004,7 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
         lm_track.LAUNCHES = lm_track.SIM3_LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
         lm_track.SIM3_CLUSTER_SIZES.clear()
+        epl_stereo.reset_counts()
         run = run_slam(torch, ref, sync_each=sync_each)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
@@ -928,6 +1013,7 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
         LM_CLUSTERS[tag] = dict(lm_track.CLUSTER_SIZES)
         SIM3_LAUNCHES[tag] = lm_track.SIM3_LAUNCHES
         SIM3_CLUSTERS[tag] = dict(lm_track.SIM3_CLUSTER_SIZES)
+        epl = epl_stereo.counts()
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     st = sys_.stats.snapshot()
@@ -993,6 +1079,7 @@ def slam_phase(torch, stencil, counted_plain, tag, trace):
     assert SIM3_LAUNCHES[tag] > 0, "no sim3_level launch on the path"
     assert_lm_on_path(tag, sys_.stats.snapshot(),
                       len(sys_.all_frame_poses) - 1)
+    assert_epl_on_path(tag, epl)
     share = None
     if trace:
         # the profiled pass runs the scenario again: it must build the same
@@ -1032,7 +1119,7 @@ def threaded_phase(torch, stencil, counted_plain, tag):
     ref = load_ref(ref_file)
     ref["keyframe_config"] = dict(ref["keyframe_config"], **keyframe)
     n = ref["n_frames"]
-    from lsd_slam_tpu_torch.ops import lm_track, scatter
+    from lsd_slam_tpu_torch.ops import epl_stereo, lm_track, scatter
 
     with counted_plain() as plain_calls:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
@@ -1040,6 +1127,7 @@ def threaded_phase(torch, stencil, counted_plain, tag):
         lm_track.LAUNCHES = lm_track.SIM3_LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
         lm_track.SIM3_CLUSTER_SIZES.clear()
+        epl_stereo.reset_counts()
         run = run_slam(torch, ref, sequential=False, sync_each=False)
         fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
         SEGMENT_LAUNCHES[tag] = scatter.LAUNCHES
@@ -1048,6 +1136,7 @@ def threaded_phase(torch, stencil, counted_plain, tag):
         LM_CLUSTERS[tag] = dict(lm_track.CLUSTER_SIZES)
         SIM3_LAUNCHES[tag] = lm_track.SIM3_LAUNCHES
         SIM3_CLUSTERS[tag] = dict(lm_track.SIM3_CLUSTER_SIZES)
+        epl = epl_stereo.counts()
     sys_, poses, recovered = run.sys, run.poses, run.recovered
     kfs, parents, edges, loops = graph_of(sys_)
     n_edges = sys_.backend.graph.pose_graph.n_edges
@@ -1087,23 +1176,22 @@ def threaded_phase(torch, stencil, counted_plain, tag):
     assert fused > 0 and acc == 0 and plain_calls[0] == 0, (
         fused, acc, plain_calls)
     assert_lm_on_path(tag, st, len(sys_.all_frame_poses) - 1)
+    assert_epl_on_path(tag, epl)
     return fused
 
 
-def observe_multi_phase(torch, stencil, counted_plain, reg_bound):
-    """Phase 7: DepthMap.update_keyframe_multi at 640x480 on the card and on
-    the CPU port from the same inputs, K = 1, 3, 8, 10. Returns (fused
-    launches on the card, the max abs error of the state fields off the
-    flipped pixels, the most pixels flipped in one K)."""
+def multi_scene(torch):
+    """[observe-multi]'s inputs at 640x480 on BenchScene(seed=0): the
+    keyframe (frame 0) with its ground-truth inverse depth, frames 1..10
+    rendered on the card, their ref->keyframe poses, a per-pixel
+    next_min_id, good masks (the tracker's min level) and residuals from
+    a seed."""
     from lsd_slam_tpu_torch.config import LSDConfig
-    from lsd_slam_tpu_torch.depth.depth_map import DepthMap
-    from lsd_slam_tpu_torch.frames import build_frame
     from lsd_slam_tpu_torch.lie import np_sim3 as nps
     from lsd_slam_tpu_torch.utils import synth
 
     w, h, n_frames = 640, 480, 130
     cam = synth.default_camera(w, h)
-    cfg = LSDConfig(width=w, height=h)
     scene = synth.BenchScene(seed=0)
     poses = synth.bench_trajectory(n_frames)
     rng = np.random.default_rng(0)
@@ -1113,31 +1201,58 @@ def observe_multi_phase(torch, stencil, counted_plain, reg_bound):
     kf_img, kf_dep = renders[0]
     gt = torch.where(kf_dep > 0, 1.0 / torch.clamp_min(kf_dep, 1e-6),
                      torch.zeros_like(kf_dep))
-    # frame k's ref->keyframe pose (gt poses are world->camera)
-    r2k = [nps.se3_mul(poses[0].astype(np.float64),
-                       nps.se3_inverse(poses[k].astype(np.float64)))
-           for k in range(11)]
-    nmi = rng.integers(0, 17, (h, w)).astype(np.float32)
-    gms = [rng.uniform(size=(h // 2, w // 2)) < 0.9 for _ in range(11)]
-    res = [float(x) for x in rng.uniform(0.5, 2.0, 11)]
+    return types.SimpleNamespace(
+        w=w, h=h, cam=cam, cfg=LSDConfig(width=w, height=h),
+        renders=renders, kf_img=kf_img, gt=gt,
+        # frame k's ref->keyframe pose (gt poses are world->camera)
+        r2k=[nps.se3_mul(poses[0].astype(np.float64),
+                         nps.se3_inverse(poses[k].astype(np.float64)))
+             for k in range(11)],
+        nmi=rng.integers(0, 17, (h, w)).astype(np.float32),
+        gms=[rng.uniform(size=(h // 2, w // 2)) < 0.9 for _ in range(11)],
+        res=[float(x) for x in rng.uniform(0.5, 2.0, 11)])
+
+
+def multi_depth_map(torch, ms, dev):
+    """(keyframe pyramid, DepthMap) of `multi_scene` on `dev`: the
+    ground-truth init and the seeded next_min_id."""
+    from lsd_slam_tpu_torch.depth.depth_map import DepthMap
+    from lsd_slam_tpu_torch.frames import build_frame
+
+    pyr = build_frame(ms.kf_img.to(dev), 5)
+    dm = DepthMap(ms.cam, ms.cfg, dev)
+    dm.initialize_from_gt(ms.gt.to(dev), pyr.max_grad[0])
+    dm.state = dm.state.replace(next_min_id=torch.as_tensor(ms.nmi,
+                                                            device=dev))
+    return pyr, dm
+
+
+def multi_update(torch, ms, dm, pyr, frames, dev):
+    """DepthMap.update_keyframe_multi over `frames` of `multi_scene`."""
+    return dm.update_keyframe_multi(
+        pyr, [ms.renders[i][0].to(dev) for i in frames],
+        [ms.r2k[i] for i in frames], [float(4 + i) for i in frames],
+        [torch.as_tensor(ms.gms[i], device=dev) for i in frames],
+        [ms.res[i] for i in frames])
+
+
+def observe_multi_phase(torch, stencil, counted_plain, reg_bound):
+    """Phase 7: DepthMap.update_keyframe_multi at 640x480 on the card and on
+    the CPU port from the same inputs, K = 1, 3, 8, 10. Returns (fused
+    launches on the card, the max abs error of the state fields off the
+    flipped pixels, the most pixels flipped in one K)."""
+    from lsd_slam_tpu_torch.ops import epl_stereo
+
+    scn = multi_scene(torch)
+    h, w = scn.h, scn.w
 
     def run(dev, k):
-        pyr = build_frame(kf_img.to(dev), 5)
-        dm = DepthMap(cam, cfg, dev)
-        dm.initialize_from_gt(gt.to(dev), pyr.max_grad[0])
-        dm.state = dm.state.replace(next_min_id=torch.as_tensor(nmi,
-                                                                device=dev))
-        frames = range(1, k + 1)
+        pyr, dm = multi_depth_map(torch, scn, dev)
         t0 = time.perf_counter()
-        stats = dm.update_keyframe_multi(
-            pyr, [renders[i][0].to(dev) for i in frames],
-            [r2k[i] for i in frames], [float(4 + i) for i in frames],
-            [torch.as_tensor(gms[i], device=dev) for i in frames],
-            [res[i] for i in frames])
+        stats = multi_update(torch, scn, dm, pyr, range(1, k + 1), dev)
         if dev == "cuda":
             torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        return dm, stats, ms
+        return dm, stats, (time.perf_counter() - t0) * 1e3
 
     launches, worst_err, worst_flips = 0, 0.0, 0
     fields = ("valid", "idepth", "var", "validity", "blacklisted",
@@ -1145,10 +1260,13 @@ def observe_multi_phase(torch, stencil, counted_plain, reg_bound):
     for k in (1, 3, 8, 10):
         with counted_plain() as plain_calls:
             stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+            epl_stereo.reset_counts()
             dm, stats, ms = run("cuda", k)
             fused, acc = stencil.FUSED_LAUNCHES, stencil.LAUNCHES
+            epl = epl_stereo.counts()
         assert fused > 0 and acc == 0 and plain_calls[0] == 0, (
             k, fused, acc, plain_calls)
+        assert_epl_on_path(f"observe-multi-K{k}", epl, sweeps=-(-k // 8))
         launches += fused
         warm_ms = run("cuda", k)[2]
         cpu_dm, cpu_stats, cpu_ms = run("cpu", k)
@@ -1248,6 +1366,10 @@ def _runner(args, timeout=900):
     # once a level of every stage it reached
     assert counts.get("sim3_syncs", 0) == 0, (args, counts)
     assert counts["sim3"] == counts.get("search_launches", 0), (args, counts)
+    # every observe sweep went through the three kernels
+    epl = counts["epl"]
+    assert min(epl.values()) > 0 and len(set(epl.values())) == 1, (args,
+                                                                    counts)
     return proc.stdout, done_fps(done[0]), counts
 
 
@@ -1273,7 +1395,7 @@ def counted_runner(argv, multihost_gates=False) -> int:
     and `fanout_check` on the keyframes it mirrored."""
     from lsd_slam_tpu_torch.io import runner
     from lsd_slam_tpu_torch.mapping.pose_graph import PoseGraph
-    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.ops import epl_stereo, lm_track
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.ops import scatter
     from lsd_slam_tpu_torch.parallel import multihost_engine
@@ -1320,6 +1442,7 @@ def counted_runner(argv, multihost_gates=False) -> int:
             lm_track.LAUNCHES = lm_track.SIM3_LAUNCHES = 0
             lm_track.CLUSTER_SIZES.clear()
             lm_track.SIM3_CLUSTER_SIZES.clear()
+            epl_stereo.reset_counts()
             runner.main(argv)
             counts = dict(fused=stencil.FUSED_LAUNCHES,
                           accumulators=stencil.LAUNCHES,
@@ -1330,7 +1453,8 @@ def counted_runner(argv, multihost_gates=False) -> int:
                           lm=lm_track.LAUNCHES,
                           lm_clusters=dict(lm_track.CLUSTER_SIZES),
                           sim3=lm_track.SIM3_LAUNCHES,
-                          sim3_clusters=dict(lm_track.SIM3_CLUSTER_SIZES))
+                          sim3_clusters=dict(lm_track.SIM3_CLUSTER_SIZES),
+                          epl=epl_stereo.counts())
     finally:
         runner.bringup_multihost = bringup
         multihost_engine.serve = serve
@@ -1567,6 +1691,7 @@ def cli_phase(torch, card):
         LM_CLUSTERS["cli-hz0"] = counts["lm_clusters"]
         SIM3_LAUNCHES["cli-hz0"] = counts["sim3"]
         SIM3_CLUSTERS["cli-hz0"] = counts["sim3_clusters"]
+        EPL_LAUNCHES["cli-hz0"] = counts["epl"]
         with open(os.path.join(out, "poses.jsonl")) as f:
             published = {p["id"]: p["cam_to_world"]
                          for p in map(json.loads, f)}
@@ -1659,6 +1784,7 @@ def cli_phase(torch, card):
         LM_CLUSTERS["cli-checkpoint"] = counts["lm_clusters"]
         SIM3_LAUNCHES["cli-checkpoint"] = counts["sim3"]
         SIM3_CLUSTERS["cli-checkpoint"] = counts["sim3_clusters"]
+        EPL_LAUNCHES["cli-checkpoint"] = counts["epl"]
         stdout, fps_b, counts = _runner([f"files:{halves[1]}",
                                          f"calib:{calib}",
                                          f"out:{os.path.join(root, 'out_b')}",
@@ -1669,6 +1795,7 @@ def cli_phase(torch, card):
         LM_CLUSTERS["cli-resume"] = counts["lm_clusters"]
         SIM3_LAUNCHES["cli-resume"] = counts["sim3"]
         SIM3_CLUSTERS["cli-resume"] = counts["sim3_clusters"]
+        EPL_LAUNCHES["cli-resume"] = counts["epl"]
         traj_b, kfs_b, _, _, n_b = _runner_outputs(
             os.path.join(root, "out_b"), CLI_FRAMES, need_graph=False)
         assert "resumed from" in stdout
@@ -1690,6 +1817,7 @@ def cli_phase(torch, card):
         LM_CLUSTERS["cli-hz30_pipeline3"] = counts["lm_clusters"]
         SIM3_LAUNCHES["cli-hz30_pipeline3"] = counts["sim3"]
         SIM3_CLUSTERS["cli-hz30_pipeline3"] = counts["sim3_clusters"]
+        EPL_LAUNCHES["cli-hz30_pipeline3"] = counts["epl"]
         traj_p, kfs_p, edges_p, n_pts_p, _ = _runner_outputs(
             os.path.join(root, "out_p"), CLI_FRAMES)
         pairs = {tuple(sorted(e)) for e in edges_p}
@@ -1712,6 +1840,751 @@ def cli_phase(torch, card):
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- the observe sweep's kernels
+
+@contextlib.contextmanager
+def recorded_observe_inputs():
+    """Record the arguments (by name) and the stats of every
+    `depth.observe.observe` call (the engine's single-reference sweep; on
+    the card it launches the three kernels) while inside. The arguments
+    are kept, not copied (the sweep writes no input in place). Yields the
+    list of (arguments, stats)."""
+    import inspect
+    from lsd_slam_tpu_torch.depth import observe
+
+    seen = []
+    real = observe.observe
+    sig = inspect.signature(real)
+
+    def call(*a, **k):
+        bound_args = sig.bind(*a, **k)
+        bound_args.apply_defaults()
+        out = real(*a, **k)
+        seen.append((dict(bound_args.arguments), out[1]))
+        return out
+
+    observe.observe = call
+    try:
+        yield seen
+    finally:
+        observe.observe = real
+
+
+def epl_case_of_observe(args):
+    """An [epl] case from a recorded `observe` call: one reference frame."""
+    return dict(
+        state=args["state"], kf_img=args["kf_img"], kf_gx=args["kf_gx"],
+        kf_gy=args["kf_gy"], kf_max_grad=args["kf_max_grad"],
+        ref_stack=args["ref_img"][None], ref_to_kf=args["ref_to_kf"][None],
+        ids=[float(np.float32(args["ref_frame_id"]))],
+        good=args["good_mask"][None],
+        residual=args["tracking_residual"].reshape(1),
+        skip_inc=float(args["skip_inc"]), cam=args["cam"],
+        dcfg=args["dcfg"], mcfg=args["mcfg"],
+        budget=int(args["point_budget"]))
+
+
+def epl_case_of_multi(torch, scn, frames):
+    """An [epl] case of `multi_scene`: the sweep update_keyframe_multi
+    runs first for `frames` (one sweep of up to 8 frames; one frame is the
+    single-reference sweep at the engine's budget)."""
+    from lsd_slam_tpu_torch.depth.depth_map import (observe_budget_full,
+                                                    upsample_mask)
+
+    pyr, dm = multi_depth_map(torch, scn, "cuda")
+    frames = list(frames)
+    good = torch.stack([torch.as_tensor(scn.gms[i], device="cuda")
+                        for i in frames])
+    return dict(
+        state=dm.state, kf_img=pyr.images[0], kf_gx=pyr.gx[0],
+        kf_gy=pyr.gy[0], kf_max_grad=pyr.max_grad[0],
+        ref_stack=torch.stack([scn.renders[i][0] for i in frames]),
+        ref_to_kf=dm._f32(np.stack([scn.r2k[i] for i in frames])),
+        ids=[float(np.float32(4 + i)) for i in frames],
+        good=upsample_mask(good, scn.cfg),
+        residual=dm._f32([scn.res[i] for i in frames]),
+        skip_inc=dm._skip_inc(), cam=scn.cam, dcfg=scn.cfg.depth,
+        mcfg=scn.cfg.mapping,
+        budget=(dm.pick_budget() if len(frames) == 1
+                else observe_budget_full(scn.h, scn.w)))
+
+
+def _moved(torch, x, dev):
+    """Tensors (and the fields of states and named tuples) on `dev`."""
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        vals = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+        if not any(torch.is_tensor(v) for v in vals.values()):
+            return x     # a camera or a config
+        return dataclasses.replace(x, **{k: _moved(torch, v, dev)
+                                         for k, v in vals.items()})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_moved(torch, v, dev) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_moved(torch, v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _moved(torch, v, dev) for k, v in x.items()}
+    return x
+
+
+def epl_terms(O, lie, c):
+    """The case's FrameTerms as its sweep computes them."""
+    if len(c["ids"]) == 1:
+        return O.frame_terms(lie.se3_inverse(c["ref_to_kf"][0]),
+                             0.25 * (1.0 + c["residual"][0]), c["cam"])
+    return O.frame_terms(lie.se3_inverse(c["ref_to_kf"]),
+                         0.25 * (1.0 + c["residual"]), c["cam"])
+
+
+def epl_sweep(O, c):
+    """The case's whole sweep through the entry a caller uses: `observe`
+    for one frame, `observe_multi` for several."""
+    kf = (c["kf_img"], c["kf_gx"], c["kf_gy"], c["kf_max_grad"])
+    if len(c["ids"]) == 1:
+        return O.observe(c["state"], *kf, c["ref_stack"][0],
+                         c["ref_to_kf"][0], c["ids"][0], c["good"][0],
+                         c["residual"][0], c["skip_inc"], c["cam"],
+                         c["dcfg"], c["mcfg"], point_budget=c["budget"])
+    return O.observe_multi(c["state"], *kf, c["ref_stack"], c["ref_to_kf"],
+                           c["ids"], c["good"], c["residual"], c["skip_inc"],
+                           c["cam"], c["dcfg"], c["mcfg"],
+                           point_budget=c["budget"])
+
+
+def epl_stages(O, lie, c, plain=False):
+    """The case's sweep stage by stage, as the entry runs it: the routed
+    stages (the kernels on the card, the plain versions on the CPU) or,
+    with `plain`, every stage on its plain version (torch ops on the
+    case's device: what the card ran before the kernels). Returns
+    (set-up, search grids, new state, stats)."""
+    h, w = c["kf_img"].shape
+    setup_fn, search_fn, fuse_fn = (
+        (O.epl_setup_plain, O.epl_search_plain, O.fuse_plain) if plain
+        else (O.epl_setup, O.epl_search, O.fuse))
+    setup = setup_fn(c["state"], c["kf_img"], c["kf_max_grad"],
+                     c["ref_to_kf"][:, 4:7], c["ids"], c["good"], c["cam"],
+                     c["dcfg"], c["mcfg"])
+    flat_idx, valid_k = O.compact_active(
+        setup.process, O.frame_shift(c["ids"][-1], h * w), c["budget"])
+    grids = search_fn(setup, flat_idx, valid_k, c["kf_img"], c["kf_gx"],
+                      c["kf_gy"], c["ref_stack"], epl_terms(O, lie, c),
+                      c["cam"], c["dcfg"], c["mcfg"])
+    new, stats = fuse_fn(c["state"], setup, grids, valid_k,
+                         c["kf_max_grad"], c["ids"], c["skip_inc"],
+                         c["dcfg"])
+    return setup, grids, new, stats
+
+
+@contextlib.contextmanager
+def rounded_sqrt(torch):
+    """While inside, `torch.sqrt` of a CPU f32 tensor is numpy's, the IEEE
+    square root, correctly rounded like the kernels' `sqrtf`. The CPU's
+    torch.sqrt of a large tensor runs MKL's vector math, which is not
+    always correctly rounded: this is the plain version with the kernels'
+    rounding, to tell that difference from any other."""
+    real = torch.sqrt
+
+    def sqrt(x, *a, **k):
+        if (not a and not k and torch.is_tensor(x) and x.device.type == "cpu"
+                and x.dtype == torch.float32):
+            return torch.from_numpy(np.sqrt(x.numpy()))
+        return real(x, *a, **k)
+
+    torch.sqrt = sqrt
+    try:
+        yield
+    finally:
+        torch.sqrt = real
+
+
+def _bits_equal(torch, a, b):
+    """Same bits (NaNs of one payload compare equal)."""
+    if a.dtype.is_floating_point:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _state_bits_equal(torch, a, b):
+    return all(_bits_equal(torch, getattr(a, f.name),
+                           getattr(b, f.name).to(getattr(a, f.name).device))
+               for f in dataclasses.fields(a))
+
+
+def _share_off(a, b):
+    return float(np.mean(a != b)) if a.size else 0.0
+
+
+def _bit_share(a, b):
+    """The share of entries of two arrays with the same bits."""
+    view = np.uint8 if a.dtype == bool else (
+        np.int64 if a.dtype.itemsize == 8 else np.int32)
+    return float(np.mean(a.view(view) == b.view(view))) if a.size else 1.0
+
+
+def _rel_err(a, b, mask):
+    a, b = a[mask].astype(np.float64), b[mask].astype(np.float64)
+    fin = np.isfinite(a) & np.isfinite(b)
+    if not fin.any():
+        return 0.0
+    return float(np.max(np.abs(a[fin] - b[fin])
+                        / np.maximum(np.abs(b[fin]), 1e-30)))
+
+
+def _abs_err(a, b, mask):
+    a, b = a[mask].astype(np.float64), b[mask].astype(np.float64)
+    fin = np.isfinite(a) & np.isfinite(b)
+    return float(np.max(np.abs(a[fin] - b[fin]), initial=0.0))
+
+
+def search_flips(O, got, want):
+    """(H, W) mask of the pixels where two searches decided apart: the codes
+    differ, or both are OK and the inverse depth or the variance is off
+    EPL_RTOL (a subpixel branch that flipped moves the variance by its
+    discretisation term), or the codes agree and the EPL length is off
+    it."""
+    a = {f: getattr(got, f).cpu().numpy() for f in O.StereoGrids._fields}
+    b = {f: getattr(want, f).cpu().numpy() for f in O.StereoGrids._fields}
+
+    def off(f):
+        return ~np.isclose(a[f], b[f], rtol=EPL_RTOL, atol=1e-9,
+                           equal_nan=True)
+    code_off = a["code"] != b["code"]
+    both_ok = (a["code"] == O.OK) & (b["code"] == O.OK)
+    return code_off | (both_ok & (off("idepth") | off("var"))) | (
+        ~code_off & off("epl"))
+
+
+def inputs_apart(O, setup_a, grids_a, setup_b, grids_b):
+    """(H, W) mask of the pixels whose fusion inputs that a sweep computes
+    (the set-up's masks and k_sel, the search's four grids) differ in bits
+    between two sweeps of the same state. The fusion is a function of a
+    pixel's own inputs: on every other pixel two sweeps must agree."""
+    apart = None
+    pairs = [(getattr(setup_a, f), getattr(setup_b, f)) for f in (
+        "epl_ok", "can_update", "can_create", "process", "k_sel")]
+    pairs += list(zip(grids_a, grids_b))
+    for x, y in pairs:
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        view = np.uint8 if x.dtype == bool else (
+            np.int64 if x.dtype.itemsize == 8 else np.int32)
+        d = x.view(view) != y.view(view)
+        apart = d if apart is None else apart | d
+    return apart
+
+
+def check_state(tag, got, want, n_active, stats_got, stats_want,
+                apart=None, codes_off=None):
+    """A sweep's new state and stats against the plain version's, under
+    tests/test_torch_observe.py's bounds: valid and the blacklist equal,
+    validity and next_min_id to EPL_COUNTER_RTOL, inverse depth and
+    variance to EPL_RTOL where both keep the pixel. Every pixel is held
+    but those of `apart` (`inputs_apart`; none for a check on the same
+    inputs), where a decision near its threshold may flip: of those at
+    most EPL_SHARE of the active points may be off, and each count may
+    be off by at most the pixels that are off or whose code or process
+    mask differ (`codes_off`, at most EPL_SHARE of the active points; each
+    pixel adds 0 or 1 to a count). Returns (max
+    relative and max absolute error of the inverse depths and variances
+    on the held pixels, the share of pixels whose every field has the
+    plain version's bits, the mask of pixels off)."""
+    from lsd_slam_tpu_torch.depth.observe import OBSERVE_STAT_KEYS
+
+    a = {f: getattr(got, f).cpu().numpy() for f in (
+        "valid", "blacklisted", "next_min_id", "validity", "idepth", "var")}
+    b = {f: getattr(want, f).cpu().numpy() for f in a}
+    shape = a["valid"].shape
+    apart = np.zeros(shape, bool) if apart is None else apart
+    codes_off = np.zeros(shape, bool) if codes_off is None else codes_off
+    off = np.zeros(shape, bool)
+    for key in ("valid", "blacklisted"):
+        off_k = a[key] != b[key]
+        assert not (off_k & ~apart).any(), (tag, key,
+                                            int((off_k & ~apart).sum()))
+        off |= off_k
+    for key in ("next_min_id", "validity"):
+        off_k = ~np.isclose(a[key], b[key], rtol=EPL_COUNTER_RTOL,
+                            atol=EPL_COUNTER_RTOL)
+        assert not (off_k & ~apart).any(), (tag, key,
+                                            int((off_k & ~apart).sum()))
+        off |= off_k
+    both = a["valid"] & b["valid"]
+    for key in ("idepth", "var"):
+        off_k = ~np.isclose(a[key], b[key], rtol=EPL_RTOL, atol=1e-7) & both
+        assert not (off_k & ~apart).any(), (tag, key,
+                                            int((off_k & ~apart).sum()))
+        off |= off_k
+    assert off.sum() <= EPL_SHARE * max(n_active, 1.0), (tag,
+                                                         int(off.sum()))
+    assert codes_off.sum() <= EPL_SHARE * max(n_active, 1.0), (
+        tag, int(codes_off.sum()))
+    held = both & ~off
+    err = abs_err = 0.0
+    for key in ("idepth", "var"):
+        err = max(err, _rel_err(a[key], b[key], held))
+        abs_err = max(abs_err, _abs_err(a[key], b[key], held))
+    same = np.ones(shape, bool)
+    for key in a:
+        view = np.uint8 if a[key].dtype == bool else np.int32
+        same &= a[key].view(view) == b[key].view(view)
+    decided = int((off | codes_off).sum())
+    for key in OBSERVE_STAT_KEYS:
+        x, y = int(stats_got[key]), int(stats_want[key])
+        assert abs(x - y) <= decided, (tag, key, x, y, decided)
+    return err, abs_err, float(same.mean()), off
+
+
+def epl_bounds(c, n_valid):
+    """(bytes, operations) of each kernel on the case's inputs, each input
+    read once and each output written once, each field at its dtype's
+    size. The set-up reads 25 B a pixel (valid 1, idepth_smoothed,
+    var_smoothed, blacklisted, next_min_id, the keyframe image and its
+    gradient bound 4 each) and 1 B of each good mask it reads (the
+    selected frame's and frame 0's: at most two), and writes 48 B (epx,
+    epy, prior, min_id, max_id 4 each, four masks 1 each, k_sel 8, the four
+    filled result grids 16). The search reads valid_k (1 B) of every slot
+    and, of a searched slot, flat_idx 8 B, the set-up and gradients 28 B
+    (+8 B of k_sel with several frames), writes 16 B of results, and
+    reads the keyframe and the reference images. The fusion reads 53 B a
+    pixel (the result grids 16, the state 29, four masks 4, the gradient
+    bound 4; +8 B of k_sel with several frames) and writes 21 B."""
+    h, w = c["kf_img"].shape
+    n_pix, k = h * w, len(c["ids"])
+    multi = 8 if k > 1 else 0     # k_sel, read with several frames only
+    setup_b = n_pix * (25 + min(k, 2) + 48)
+    stereo_b = (c["budget"] * 1 + n_valid * (8 + 28 + multi + 16)
+                + n_pix * 4 * (1 + k))
+    fuse_b = n_pix * (53 + multi + 21)
+    return {"epl_prepare": (setup_b, 45 * n_pix),
+            "epl_stereo": (stereo_b, EPL_OPS_PER_SLOT * n_valid),
+            "observe_fuse": (fuse_b, 40 * n_pix)}
+
+
+def bound_of(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ints(stats):
+    return {key: int(v) for key, v in stats.items()}
+
+
+def epl_case(torch, card, name, c):
+    """[epl] on one case: each kernel and the whole sweep against its plain
+    version run on the CPU from the same inputs (the plain versions also
+    with a correctly rounded sqrt, `rounded_sqrt`, the bit-equal shares
+    logged), second launches bit for bit, CUDA-event ms of kernel and
+    plain (on the card) beside the bound, host us per sweep. Returns the
+    case's row."""
+    from lsd_slam_tpu_torch import lie
+    from lsd_slam_tpu_torch.depth import observe as O
+    from lsd_slam_tpu_torch.ops import epl_stereo as E
+
+    cpu = functools.partial(_moved, torch, dev="cpu")
+    h, w = c["kf_img"].shape
+    n_pix, k = h * w, len(c["ids"])
+    cam, dcfg, mcfg = c["cam"], c["dcfg"], c["mcfg"]
+    setup_args = (c["state"], c["kf_img"], c["kf_max_grad"],
+                  c["ref_to_kf"][:, 4:7].contiguous(), c["ids"], c["good"],
+                  cam, dcfg, mcfg)
+    row = dict(frames=k, shape=f"{w}x{h}", budget=c["budget"])
+
+    # -- epl_prepare
+    s1 = E.epl_prepare(*setup_args)
+    s2 = E.epl_prepare(*setup_args)
+    sp = O.epl_setup_plain(*cpu(setup_args))
+    with rounded_sqrt(torch):
+        sq = O.epl_setup_plain(*cpu(setup_args))
+    torch.cuda.synchronize()
+    fields = O.EplSetup._fields[:10]
+    assert all(_bits_equal(torch, getattr(s1, f), getattr(s2, f))
+               for f in fields), f"{name}: epl_prepare's second launch"
+    bit_eq, bit_eq_rounded, worst, worst_abs = {}, {}, 0.0, 0.0
+    for f in fields:
+        a, b = getattr(s1, f).cpu().numpy(), getattr(sp, f).numpy()
+        bit_eq_rounded[f] = _bit_share(a, getattr(sq, f).numpy())
+        if a.dtype.kind in "bi":
+            off = _share_off(a, b)
+            assert off <= EPL_SHARE, (name, f, off)
+        else:
+            np.testing.assert_allclose(a, b, rtol=EPL_RTOL, atol=1e-6,
+                                       equal_nan=True,
+                                       err_msg=f"{name} setup {f}")
+            everywhere = np.ones(a.shape, bool)
+            worst = max(worst, _rel_err(a, b, everywhere))
+            worst_abs = max(worst_abs, _abs_err(a, b, everywhere))
+        bit_eq[f] = _bit_share(a, b)
+    row["epl_prepare"] = dict(bit_equal_share=min(bit_eq.values()),
+                              bit_equal_share_rounded_sqrt=min(
+                                  bit_eq_rounded.values()),
+                              max_rel_err=worst, max_abs_err=worst_abs)
+    log(f"[epl] {name}: epl_prepare against the CPU plain version: share "
+        f"of bit-equal pixels per field {bit_eq}, max rel err {worst:.3g}; "
+        f"with a correctly rounded sqrt {bit_eq_rounded}; second launch "
+        f"bit-equal")
+
+    # -- the compaction (torch ops) on the card's set-up, then epl_stereo
+    # (each launch writes its set-up's grids)
+    flat_idx, valid_k = O.compact_active(
+        s1.process, O.frame_shift(c["ids"][-1], n_pix), c["budget"])
+    terms = epl_terms(O, lie, c)
+    stereo_args = (flat_idx, valid_k, c["kf_img"], c["kf_gx"], c["kf_gy"],
+                   c["ref_stack"], terms, cam, dcfg, mcfg)
+    g1 = E.epl_stereo(s1, *stereo_args)
+    g2 = E.epl_stereo(s2, *stereo_args)
+    gp = O.epl_search_plain(cpu(s1), *cpu(stereo_args))
+    with rounded_sqrt(torch):
+        gq = O.epl_search_plain(cpu(s1), *cpu(stereo_args))
+    torch.cuda.synchronize()
+    assert all(_bits_equal(torch, x, y) for x, y in zip(g1, g2)), (
+        f"{name}: epl_stereo's second launch")
+    slots = flat_idx[valid_k].cpu().numpy()
+    n_valid = int(slots.size)
+    a = {f: getattr(g1, f).cpu().numpy().reshape(-1)[slots]
+         for f in O.StereoGrids._fields}
+    b = {f: getattr(gp, f).numpy().reshape(-1)[slots]
+         for f in O.StereoGrids._fields}
+    q = {f: getattr(gq, f).numpy().reshape(-1)[slots]
+         for f in O.StereoGrids._fields}
+    code_off = _share_off(a["code"], b["code"])
+    agree = a["code"] == b["code"]
+    both_ok = agree & (a["code"] == O.OK)
+    assert code_off <= EPL_SHARE, (name, "codes", code_off)
+    for f, mask in (("idepth", both_ok), ("var", both_ok), ("epl", agree)):
+        np.testing.assert_allclose(a[f][mask], b[f][mask], rtol=EPL_RTOL,
+                                   atol=1e-9, equal_nan=True,
+                                   err_msg=f"{name} stereo {f}")
+    same = np.ones(n_valid, bool)
+    same_q = np.ones(n_valid, bool)
+    for f in a:
+        same &= a[f].view(np.int32) == b[f].view(np.int32)
+        same_q &= a[f].view(np.int32) == q[f].view(np.int32)
+    compared = (("idepth", both_ok), ("var", both_ok), ("epl", agree))
+    serr = max(_rel_err(a[f], b[f], m) for f, m in compared)
+    row["epl_stereo"] = dict(points=n_valid, codes_off=int((~agree).sum()),
+                             ok_codes=int(both_ok.sum()),
+                             bit_equal_share=float(same.mean())
+                             if n_valid else 1.0,
+                             bit_equal_share_rounded_sqrt=float(
+                                 same_q.mean()) if n_valid else 1.0,
+                             max_rel_err=serr,
+                             max_abs_err=max(_abs_err(a[f], b[f], m)
+                                             for f, m in compared))
+    log(f"[epl] {name}: epl_stereo on {n_valid} points of a {c['budget']} "
+        f"budget against the CPU plain version: codes differ at "
+        f"{int((~agree).sum())} ({code_off:.4%}), {int(both_ok.sum())} OK on "
+        f"both, share of bit-equal points "
+        f"{row['epl_stereo']['bit_equal_share']:.6f} (with a correctly "
+        f"rounded sqrt {row['epl_stereo']['bit_equal_share_rounded_sqrt']:.6f}"
+        f"), max rel err (idepth, var where both OK; EPL length where the "
+        f"codes agree) {serr:.3g}; second launch bit-equal")
+
+    # -- observe_fuse on the card's set-up and results: the same inputs,
+    # so every pixel is held and the counts are equal (each launch adds
+    # into its set-up's counts)
+    f1, st1 = E.observe_fuse(c["state"], s1, g1, c["kf_max_grad"], c["ids"],
+                             c["skip_inc"], dcfg)
+    f2, st2 = E.observe_fuse(c["state"], s2, g2, c["kf_max_grad"], c["ids"],
+                             c["skip_inc"], dcfg)
+    fp, stp = O.fuse_plain(cpu(c["state"]), cpu(s1), cpu(g1), cpu(valid_k),
+                           cpu(c["kf_max_grad"]), c["ids"], c["skip_inc"],
+                           dcfg)
+    torch.cuda.synchronize()
+    st1, st2, stp = _ints(st1), _ints(st2), _ints(stp)
+    assert _state_bits_equal(torch, f1, f2), (
+        f"{name}: observe_fuse's second launch")
+    assert st1 == st2, (name, st1, st2)
+    ferr, fabs, fsame, _ = check_state(f"{name} fuse", f1, fp,
+                                       stp["active"], st1, stp)
+    row["observe_fuse"] = dict(bit_equal_share=fsame, max_rel_err=ferr,
+                               max_abs_err=fabs, stats=st1)
+    log(f"[epl] {name}: observe_fuse against the CPU plain version: every "
+        f"pixel held, share of bit-equal pixels {fsame:.6f}, max rel err "
+        f"{ferr:.3g}, stats {st1} (plain {stp}, equal); second launch "
+        f"bit-equal")
+
+    # -- the whole sweep through its entry, card against the CPU port, and
+    # stage by stage (the entry's bits) to find the pixels whose searches
+    # decided apart
+    w1, ws1 = epl_sweep(O, c)
+    w2, _ = epl_sweep(O, c)
+    c_cpu = cpu(c)
+    wp, wsp = epl_sweep(O, c_cpu)
+    card_st = epl_stages(O, lie, c)
+    refs = {"the CPU port": epl_stages(O, lie, c_cpu)}
+    with rounded_sqrt(torch):
+        refs["the CPU port with a correctly rounded sqrt"] = epl_stages(
+            O, lie, c_cpu)
+    torch.cuda.synchronize()
+    assert _state_bits_equal(torch, w1, w2), f"{name}: second sweep"
+    assert _state_bits_equal(torch, card_st[2], w1), (
+        f"{name}: the card's stages against its entry")
+    assert _state_bits_equal(torch, refs["the CPU port"][2], wp), (
+        f"{name}: the CPU's stages against its entry")
+    ws1, wsp = _ints(ws1), _ints(wsp)
+    row["sweep"] = dict(active=ws1["active"], processed=ws1["processed"],
+                        updated=ws1["updated"], created=ws1["created"],
+                        killed=ws1["killed"],
+                        blacklisted=ws1["blacklisted"])
+    for ref_name, (r_setup, r_grids, r_state, r_stats) in refs.items():
+        r_stats = _ints(r_stats)
+        apart = inputs_apart(O, card_st[0], card_st[1], r_setup, r_grids)
+        flips = search_flips(O, card_st[1], r_grids)
+        codes_off = ((card_st[1].code.cpu() != r_grids.code)
+                     | (card_st[0].process.cpu() != r_setup.process)).numpy()
+        werr, wabs, wsame, off = check_state(
+            f"{name} sweep, {ref_name}", card_st[2], r_state,
+            r_stats["active"], ws1, r_stats, apart, codes_off)
+        entry = dict(bit_equal_share=wsame, max_rel_err=werr,
+                     max_abs_err=wabs, inputs_apart=int(apart.sum()),
+                     off=int(off.sum()), search_flips=int(flips.sum()),
+                     off_on_search_flips=int((off & flips).sum()),
+                     stats_equal=ws1 == r_stats)
+        if ref_name == "the CPU port":
+            row["sweep"].update(entry)
+        else:
+            row["sweep"]["rounded_sqrt"] = entry
+        log(f"[epl] {name}: the whole sweep (set-up, compaction, search, "
+            f"fusion) on the card against {ref_name}: the fusion's inputs "
+            f"differ in bits at {entry['inputs_apart']} pixels, the "
+            f"searches decided apart at {entry['search_flips']}; "
+            f"{entry['off']} pixels off the bounds, all of them among the "
+            f"first ({entry['off_on_search_flips']} where a search "
+            f"decided apart, the rest on a fusion threshold); every other "
+            f"pixel held; share of bit-equal pixels {wsame:.6f}, max rel "
+            f"err {werr:.3g}, stats {ws1} ({ref_name} {r_stats})")
+    log(f"[epl] {name}: a second sweep bit-equal; the stages give the "
+        f"entry's bits on the card and on the CPU")
+
+    # -- timings, beside the bounds
+    plain_card = {
+        "epl_prepare": lambda: O.epl_setup_plain(*setup_args),
+        "epl_stereo": lambda: O.epl_search_plain(s1, *stereo_args),
+        "observe_fuse": lambda: O.fuse_plain(
+            c["state"], s1, g1, valid_k, c["kf_max_grad"], c["ids"],
+            c["skip_inc"], dcfg)}
+    kern = {
+        "epl_prepare": lambda: E.epl_prepare(*setup_args),
+        "epl_stereo": lambda: E.epl_stereo(s1, *stereo_args),
+        "observe_fuse": lambda: E.observe_fuse(
+            c["state"], s1, g1, c["kf_max_grad"], c["ids"], c["skip_inc"],
+            dcfg)}
+    bounds = epl_bounds(c, n_valid)
+    for kname in E.KERNELS:
+        t = time_in_turns(torch, [("kernel", kern[kname]),
+                                  ("plain", plain_card[kname])], 5, 8)
+        b_ms, b_by = bound_of(*bounds[kname])
+        row[kname].update(ms=t["kernel"], plain_ms=t["plain"],
+                          bound_ms=b_ms, bound_by=b_by,
+                          bound_share=b_ms / t["kernel"],
+                          bytes=bounds[kname][0], ops=bounds[kname][1])
+        log(f"[epl] {name}: {kname} {t['kernel']:.5f} ms (plain torch ops "
+            f"on the card {t['plain']:.4f} ms), bound {b_ms:.5f} ms "
+            f"({b_by}: {bounds[kname][0]} B, {bounds[kname][1]} ops), "
+            f"{b_ms / t['kernel']:.1%} of it; {card}")
+    # does the sweep make the host wait for the card? (torch's sync debug
+    # mode names the first operation that would)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        epl_sweep(O, c)
+        synced = "none"
+    except RuntimeError as exc:
+        import traceback
+        where = [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}"
+                 for f in traceback.extract_tb(exc.__traceback__)
+                 if "lsd_slam_tpu_torch" in f.filename]
+        synced = (f"{str(exc).splitlines()[0][:120]} at "
+                  f"{where[-1] if where else '?'}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    row["sweep"]["host_waits"] = synced
+    log(f"[epl] {name}: the sweep's first host wait for the card (torch's "
+        f"sync debug mode): {synced}")
+    shift = O.frame_shift(c["ids"][-1], n_pix)
+    row["compaction_ms"] = time_gpu(
+        torch, lambda: O.compact_active(s1.process, shift, c["budget"]), 10,
+        8)
+    log(f"[epl] {name}: the compaction (torch ops) "
+        f"{row['compaction_ms']:.4f} ms; {card}")
+    t = time_in_turns(torch, [("kernels", lambda: epl_sweep(O, c)),
+                              ("plain", lambda: epl_stages(O, lie, c,
+                                                           plain=True))],
+                      3, 8)
+    us = {"kernels": host_us_per_call(torch, lambda: epl_sweep(O, c), 30, 5),
+          "plain": host_us_per_call(
+              torch, lambda: epl_stages(O, lie, c, plain=True), 10, 5)}
+    row["sweep"].update(ms=t["kernels"], plain_ms=t["plain"],
+                        host_us=us["kernels"], plain_host_us=us["plain"])
+    log(f"[epl] {name}: whole sweep {t['kernels']:.4f} ms device (plain "
+        f"route on the card {t['plain']:.4f} ms), host {us['kernels']:.1f} "
+        f"us per sweep (plain route {us['plain']:.1f} us); {card}")
+    return row
+
+
+def with_mixed_state(torch, c, seed=1):
+    """The case on a state where creation, blacklisting and kills run: 30%
+    of the pixels invalidated (the create path), the blacklist counter
+    drawn from {-2, -1, 0} (below min_blacklist no pixel is created), and
+    a fifth of the pixels at 0.95 max_var, which a failed update's
+    fail_var_inc_fac pushes past max_var (a kill). Drawn from `seed`."""
+    st = c["state"]
+    h, w = st.valid.shape
+    rng = np.random.default_rng(seed)
+    dev = st.valid.device
+    drop = torch.as_tensor(rng.uniform(size=(h, w)) < 0.3, device=dev)
+    high = torch.as_tensor(rng.uniform(size=(h, w)) < 0.2, device=dev)
+    black = torch.as_tensor(rng.integers(-2, 1, (h, w)).astype(np.int32),
+                            device=dev)
+    var = torch.where(high, torch.full_like(st.var, 0.95 * c["dcfg"].max_var),
+                      st.var)
+    return dict(c, state=st.replace(valid=st.valid & ~drop,
+                                    blacklisted=black, var=var))
+
+
+def threads_repeat(torch, stencil, n):
+    """[slam-threads] and [slam-production], `n` times each (free-running,
+    so each run takes its own path), each held to its phase's bars, a
+    failure recorded, not raised: how often a threaded run, whose tracking
+    never waits for the mapping thread, holds them."""
+    results = {}
+    for tag in ("slam-threads", "slam-production"):
+        for i in range(n):
+            try:
+                threaded_phase(torch, stencil,
+                               functools.partial(counted_plain, stencil), tag)
+                ok, why = True, ""
+            except Exception as exc:  # noqa: BLE001 - the run's verdict
+                ok, why = False, repr(exc)[:400]
+            results.setdefault(tag, []).append(ok)
+            log(f"[threads-repeat] {tag} run {i + 1} of {n}: "
+                + ("holds its bars" if ok else f"FAILS: {why}"))
+    log(f"[threads-repeat] runs holding their bars: {json.dumps(results)}")
+    return results
+
+
+def epl_kernel_rows(rows):
+    """The kernels line's entries of the observe sweep's three kernels: the
+    [vo] sweep's numbers, every case beside them."""
+    src = "lsd_slam_tpu_torch/csrc/epl_stereo.cu"
+    jax = "lsd_slam_tpu/depth/observe.py"
+    replaces = {
+        "epl_prepare": (f"{jax}:62 (make_epl, XLA-fused jnp code; no "
+                        f"Pallas counterpart)",
+                        [f"{jax}:586", f"{jax}:430-462", f"{jax}:640-680"]),
+        "epl_stereo": (f"{jax}:88-414 (line_stereo, XLA-fused jnp code; no "
+                       f"Pallas counterpart)", [f"{jax}:417", f"{jax}:616"]),
+        "observe_fuse": (f"{jax}:501 (_fuse_results, XLA-fused jnp code; "
+                         f"no Pallas counterpart)", []),
+    }
+    cases = {k: v for k, v in rows.items() if k != "k10_chunks"}
+    out = []
+    for name, (main, also) in replaces.items():
+        vo = rows["vo"][name]
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=main,
+            also_replaces=also,
+            launches=sum(c.get(name, 0) for c in EPL_LAUNCHES.values()),
+            path_launches={tag: c.get(name, 0)
+                           for tag, c in EPL_LAUNCHES.items()},
+            max_abs_err=max(c[name]["max_abs_err"] for c in cases.values()),
+            shape="[vo]'s last 640x480 sweep, as the engine passed it",
+            ms=vo["ms"], plain_ms=vo["plain_ms"], bound_ms=vo["bound_ms"],
+            bound_by=vo["bound_by"], library_ms=None,
+            library_note="none: no single PyTorch call runs the EPL search",
+            cases={k: c[name] for k, c in cases.items()})
+        if name == "epl_stereo":
+            entry["sweeps"] = {k: c["sweep"] for k, c in cases.items()}
+            entry["k10_chunks"] = rows["k10_chunks"]
+        out.append(entry)
+    return out
+
+
+def flip_count(got, want, reg_bound):
+    """(pixels whose EPL decision flipped, pixels where only the
+    next_min_id dither differs, its largest step, the max abs error
+    elsewhere) between two states, as [observe-multi] counts them."""
+    decided = np.zeros(tuple(got.valid.shape), bool)
+    diffs = {}
+    for f in ("valid", "idepth", "var", "validity", "blacklisted",
+              "idepth_smoothed", "var_smoothed"):
+        a = getattr(got, f).cpu().numpy().astype(np.float64)
+        b = getattr(want, f).cpu().numpy().astype(np.float64)
+        diffs[f] = np.abs(a - b)
+        decided |= diffs[f] > (0 if f in ("valid", "blacklisted")
+                               else reg_bound)
+    a = got.next_min_id.cpu().numpy()
+    b = want.next_min_id.cpu().numpy()
+    dither = (a != b) & ~decided
+    err = max(float(d[~decided].max(initial=0.0)) for d in diffs.values())
+    return (int(decided.sum()), int(dither.sum()),
+            float(np.abs(a - b)[dither].max(initial=0.0)), err)
+
+
+def chunk_experiment(torch, scn):
+    """Queue 3 item 1: K = 10 maps as two chunks (frames 1-8, then 9-10).
+    Chunk 1 on the card and on the CPU port; then chunk 2 from the CPU's
+    chunk-1 state on both. Returns the flips after chunk 1, after chunk 2
+    from one state, and after both chunks run apart (the [observe-multi]
+    K = 10 case)."""
+    pyr_c, dm_c = multi_depth_map(torch, scn, "cuda")
+    pyr_p, dm_p = multi_depth_map(torch, scn, "cpu")
+    multi_update(torch, scn, dm_c, pyr_c, range(1, 9), "cuda")
+    multi_update(torch, scn, dm_p, pyr_p, range(1, 9), "cpu")
+    after1 = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
+    apart = dm_c.state
+    dm_c.state = _moved(torch, dm_p.state, "cuda")
+    assert dm_c.num_mapped_on_this == dm_p.num_mapped_on_this
+    multi_update(torch, scn, dm_c, pyr_c, range(9, 11), "cuda")
+    multi_update(torch, scn, dm_p, pyr_p, range(9, 11), "cpu")
+    torch.cuda.synchronize()
+    after2 = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
+    dm_c.state = apart
+    multi_update(torch, scn, dm_c, pyr_c, range(9, 11), "cuda")
+    both = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
+    return after1, after2, both
+
+
+def epl_phase(torch, card, vo_sweeps):
+    """[epl]: the three kernels of csrc/epl_stereo.cu and the whole sweep
+    on [vo]'s sweep of the most active points as the engine passed it
+    (`recorded_observe_inputs`; the last one searches none), on
+    [observe-multi]'s inputs at K = 1, 3, 8 (one sweep each) and at K = 3
+    on a mixed state (`with_mixed_state`: the fusion's create, blacklist
+    and kill branches run), then K = 10's chunk experiment. Returns the
+    kernels' rows."""
+    scn = multi_scene(torch)
+    active = [int(st["active"]) for _, st in vo_sweeps]
+    pick = int(np.argmax(active))
+    log(f"[epl] [vo]'s sweeps searched {active} active points; the case is "
+        f"sweep {pick + 1} of {len(active)}")
+    rows = {"vo": epl_case(torch, card, "vo",
+                           epl_case_of_observe(vo_sweeps[pick][0]))}
+    for k in (1, 3, 8):
+        rows[f"multi-K{k}"] = epl_case(
+            torch, card, f"multi K={k}",
+            epl_case_of_multi(torch, scn, range(1, k + 1)))
+    # the create, blacklist and kill branches of the fusion
+    rows["multi-K3-mixed"] = row = epl_case(
+        torch, card, "multi K=3 mixed state",
+        with_mixed_state(torch, epl_case_of_multi(torch, scn, range(1, 4))))
+    reached = {key: row["sweep"][key]
+               for key in ("created", "blacklisted", "killed")}
+    assert all(v > 0 for v in reached.values()), reached
+    after1, after2, both = chunk_experiment(torch, scn)
+    chunks = dict(after_chunk1=after1, chunk2_from_one_state=after2,
+                  chunks_apart=both)
+    log(f"[epl] K=10 chunks (flipped EPL decisions, dither-only pixels, "
+        f"largest dither step, max abs err elsewhere), card against the CPU "
+        f"port: after chunk 1 (frames 1-8) {after1}; chunk 2 (frames 9-10) "
+        f"from the CPU's chunk-1 state on both {after2}; both chunks run "
+        f"apart {both}")
+    rows["k10_chunks"] = chunks
+    return rows
 
 
 # ---- the trackers' LM level loop
@@ -3641,7 +4514,11 @@ def multihost_phase(card, frames, calib, root, want_kfs, want_edges,
         LM_CLUSTERS[f"multihost-rank{r}"] = c["lm_clusters"]
         SIM3_LAUNCHES[f"multihost-rank{r}"] = c["sim3"]
         SIM3_CLUSTERS[f"multihost-rank{r}"] = c["sim3_clusters"]
+        EPL_LAUNCHES[f"multihost-rank{r}"] = c["epl"]
     assert r0["lm"] > 0, r0
+    # rank 0 runs the engine: its sweeps went through the three kernels
+    assert min(r0["epl"].values()) > 0, r0["epl"]
+    assert len(set(r0["epl"].values())) == 1, r0["epl"]
     return r0["fused"]
 
 
@@ -3820,7 +4697,7 @@ def warmup_run(mode: str) -> int:
     and kernel launches, as the last line."""
     import torch
     from lsd_slam_tpu_torch.config import LSDConfig
-    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.ops import epl_stereo, lm_track
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.ops import scatter
     from lsd_slam_tpu_torch.system import SlamSystem, warmup
@@ -3840,6 +4717,7 @@ def warmup_run(mode: str) -> int:
         lm_track.LAUNCHES = lm_track.SIM3_LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
         lm_track.SIM3_CLUSTER_SIZES.clear()
+        epl_stereo.reset_counts()
         seen = []
         finalize = SlamSystem.finalize
 
@@ -3862,6 +4740,7 @@ def warmup_run(mode: str) -> int:
         out["warmup_lm_clusters"] = dict(lm_track.CLUSTER_SIZES)
         out["warmup_sim3"] = lm_track.SIM3_LAUNCHES
         out["warmup_sim3_clusters"] = dict(lm_track.SIM3_CLUSTER_SIZES)
+        out["warmup_epl"] = epl_stereo.counts()
     t0 = time.perf_counter()
     sys_ = SlamSystem(cam, cfg)
     sys_.gt_depth_init(frames[0][0], frames[0][1], 0, 0.0)
@@ -3916,6 +4795,7 @@ def warmup_phase(card):
     LM_CLUSTERS["warmup"] = w["warmup_lm_clusters"]
     SIM3_LAUNCHES["warmup"] = w["warmup_sim3"]
     SIM3_CLUSTERS["warmup"] = w["warmup_sim3_clusters"]
+    assert_epl_on_path("warmup", w["warmup_epl"])
     return w["warmup_fused"]
 
 
@@ -4066,7 +4946,28 @@ def lm_route(route: str):
         lm.level, st3.levels = real
 
 
-def lm_turns(torch, card):
+@contextlib.contextmanager
+def epl_route(route: str):
+    """Inside, the observe sweep's stages run as `route` says: "kernel"
+    (the engine's own: `epl_prepare`, `epl_stereo`, `observe_fuse` on the
+    card) or "plain" (each stage's plain version, torch ops on the card:
+    the sweep the port ran before the kernels); for `--epl-turns` only."""
+    from lsd_slam_tpu_torch.depth import observe
+
+    real = observe.epl_setup, observe.epl_search, observe.fuse
+    if route == "plain":
+        observe.epl_setup = observe.epl_setup_plain
+        observe.epl_search = observe.epl_search_plain
+        observe.fuse = observe.fuse_plain
+    try:
+        yield
+    finally:
+        observe.epl_setup, observe.epl_search, observe.fuse = real
+
+
+def lm_turns(torch, card, routes=("kernel", "sim3-plain", "plain", "plain",
+                                  "sim3-plain", "kernel"),
+             route_of=None, tag="lm-turns"):
     """`chip_smoke.py --lm-turns`: [vo]'s sequence, [slam]'s (lag 0, each
     frame synchronised) and [slam-pipelined]'s (lag 3) with the LM loops
     on the kernels, with only the Sim(3) loop on its plain version, and
@@ -4075,28 +4976,31 @@ def lm_turns(torch, card):
     card in one call: frames
     per second, p50 / p95 frame ms, the track stage's median (dispatch
     window), the switch frames' median, the constraint search per new
-    keyframe, host syncs and LM trial flags per frame, keyframes."""
+    keyframe, host syncs and LM trial flags per frame, keyframes, the
+    observe stage's median. `--epl-turns` runs the same with the observe
+    sweep's routes (`epl_route`: kernel, plain, plain, kernel)."""
+    route_of = route_of or lm_route
     with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
                            "vo_orbit_640x480.json")) as f:
         vo_ref = json.load(f)
     runs = (("slam", load_ref(SLAM_RUNS["slam"][0]), True),
             ("slam-pipelined", load_ref(SLAM_RUNS["slam-pipelined"][0]),
              False))
-    for route in ("kernel", "sim3-plain", "plain", "plain", "sim3-plain",
-                  "kernel"):
-        with lm_route(route):
+    for route in routes:
+        with route_of(route):
             sys_, _, fms, _ = run_vo(torch, vo_ref, profile=False)
             st = sys_.stats.snapshot()
             steady = fms[1:]
             n = len(fms)
-            log(f"[lm-turns] {route} [vo]: "
+            log(f"[{tag}] {route} [vo]: "
                 f"{len(steady) / (sum(steady) / 1e3):.3f} fps, p50 "
                 f"{np.percentile(fms, 50):.3f} ms, p95 "
                 f"{np.percentile(fms, 95):.3f} ms, track "
-                f"{sys_.timers.median('track'):.2f} ms; syncs per frame "
+                f"{sys_.timers.median('track'):.2f} ms, observe "
+                f"{sys_.timers.median('observe'):.2f} ms; syncs per frame "
                 f"{sum(st.get(k, 0) for k in SYNC_KEYS) / n:.2f}, SE3 LM "
                 f"flags {st.get('lm_syncs', 0):.0f}; {card}")
-            for tag, ref, sync_each in runs:
+            for name, ref, sync_each in runs:
                 run = run_slam(torch, ref, sync_each=sync_each)
                 st = run.sys.stats.snapshot()
                 n = ref["n_frames"]
@@ -4105,11 +5009,13 @@ def lm_turns(torch, card):
                 search_ms = sum(st.get(f"sim3_stage{k}_ms", 0.0)
                                 for k in range(3)) / searches
                 sw = run.fms[run.sw]
-                log(f"[lm-turns] {route} [{tag}]: "
+                log(f"[{tag}] {route} [{name}]: "
                     f"{(n - 1) / run.track_s:.3f} fps, p50 "
                     f"{np.percentile(run.fms, 50):.3f} ms, p95 "
                     f"{np.percentile(run.fms, 95):.3f} ms, track "
-                    f"{run.sys.timers.median('track'):.2f} ms, switch frames "
+                    f"{run.sys.timers.median('track'):.2f} ms, observe "
+                    f"{run.sys.timers.median('observe'):.2f} ms, switch "
+                    f"frames "
                     f"median {np.median(sw) if len(sw) else float('nan'):.1f}"
                     f" ms, constraint search {search_ms:.1f} ms per new "
                     f"keyframe; syncs per "
@@ -4146,6 +5052,16 @@ def main() -> int:
     ap.add_argument("--lm-only", action="store_true",
                     help="only [vo] (its level inputs recorded) and [lm] "
                     "(one short call)")
+    ap.add_argument("--epl-turns", action="store_true",
+                    help="only time the observe sweep's kernels against its "
+                    "plain torch route on [vo] and [slam]'s sequences, in "
+                    "turns")
+    ap.add_argument("--epl-only", action="store_true",
+                    help="only [vo] (its last observe sweep recorded) and "
+                    "[epl] (one short call)")
+    ap.add_argument("--threads-repeat", type=int, metavar="N",
+                    help="only [slam-threads] and [slam-production], N "
+                    "times each, each held to its bars")
     ap.add_argument("--counted-runner", nargs=argparse.REMAINDER,
                     metavar="ARG", help="run io.runner.main(ARG...) with "
                     "the kernel counts as the last line ([cli] uses it)")
@@ -4178,7 +5094,7 @@ def main() -> int:
     if args.pgo_rank:
         r, w, coord, chan, out = args.pgo_rank
         return pgo_rank(int(r), int(w), int(coord), int(chan), out)
-    from lsd_slam_tpu_torch.ops import build, lm_track
+    from lsd_slam_tpu_torch.ops import build, epl_stereo, lm_track
     from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
     from lsd_slam_tpu_torch.ops import scatter
     from lsd_slam_tpu_torch.utils.evaluate import ate_rmse
@@ -4235,6 +5151,10 @@ def main() -> int:
     if args.lm_turns:
         lm_turns(torch, card)
         return 0
+    if args.epl_turns:
+        lm_turns(torch, card, ("kernel", "plain", "plain", "kernel"),
+                 epl_route, "epl-turns")
+        return 0
     lm_base = sim3_base = None
     if "lm_baseline" in extra:
         lm_base = ctypes.CDLL(str(build.library_path(
@@ -4251,6 +5171,22 @@ def main() -> int:
         lm_phase(torch, card, vo_levels, lm_base)
         sim3_phase(torch, card, sim3_base)
         return 0
+    if args.epl_only:
+        with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
+                               "vo_orbit_640x480.json")) as f:
+            ref = json.load(f)
+        with recorded_observe_inputs() as vo_sweep:
+            epl_stereo.reset_counts()
+            sys_ = run_vo(torch, ref, profile=False)[0]
+            created = int(sys_.stats.snapshot().get("keyframes_created", 0))
+            # one sweep a tracked frame but the switch frames
+            assert_epl_on_path("vo", epl_stereo.counts(),
+                               sweeps=ref["n_frames"] - 1 - created)
+        epl_phase(torch, card, vo_sweep)
+        return 0
+    if args.threads_repeat:
+        results = threads_repeat(torch, stencil, args.threads_repeat)
+        return 0 if all(all(v) for v in results.values()) else 1
     baseline = walk = None
     if "segment_sum_walk" in extra:
         walk = bind_walk_segment_sum(ctypes.CDLL(str(build.library_path(
@@ -4301,12 +5237,15 @@ def main() -> int:
                            "vo_orbit_640x480.json")) as f:
         ref = json.load(f)
     with counted_plain(stencil) as plain_calls, \
-            recorded_lm_inputs() as vo_levels:
+            recorded_lm_inputs() as vo_levels, \
+            recorded_observe_inputs() as vo_sweep:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         lm_track.LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
+        epl_stereo.reset_counts()
         sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
+        vo_epl = epl_stereo.counts()
         launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
         SEGMENT_LAUNCHES["vo"] = scatter.LAUNCHES
         ORDER_LAUNCHES["vo"] = scatter.ORDER_LAUNCHES
@@ -4346,6 +5285,8 @@ def main() -> int:
         f"segment_order launches {ORDER_LAUNCHES['vo']}, "
         f"over {n - 1} tracked frames")
     assert_lm_on_path("vo", st, n - 1)
+    # one sweep a tracked frame but the switch frames
+    assert_epl_on_path("vo", vo_epl, sweeps=n - 1 - created)
     log(f"[vo] stage ms (dispatch windows): {sys_.timers.summary()}")
     assert sys_.tracking_is_good, "tracking lost"
     assert created >= 1, "no keyframe switch"
@@ -4394,6 +5335,10 @@ def main() -> int:
     lm_row = lm_phase(torch, card, vo_levels, lm_base)
     sim3_row = sim3_phase(torch, card, sim3_base)
     phase_done("lm")
+
+    # ---- 20. the observe sweep's kernels against their plain versions ----
+    epl_rows = epl_phase(torch, card, vo_sweep)
+    phase_done("epl")
 
     # ---- 5. SLAM at full width ----
     log(f"[slam] card: {card}")
@@ -4570,6 +5515,7 @@ def main() -> int:
              library_note="no single PyTorch call runs an LM loop",
              stages=sim3_row["stages"], cases=sim3_row["cases"],
              path_clusters=SIM3_CLUSTERS),
+        *epl_kernel_rows(epl_rows),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -28,7 +28,9 @@ def quat_normalize(q):
 
 
 def quat_conj(q):
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    # the product with [1, -1, -1, -1] (the JAX package's) bit for bit,
+    # without copying that constant to the card, which waits for its stream
+    return torch.cat([q[..., 0:1], -q[..., 1:4]], dim=-1)
 
 
 def quat_mul(a, b):

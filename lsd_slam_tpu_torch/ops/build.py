@@ -29,6 +29,7 @@ SOURCES = {
     "segment_sum": "segment_sum.cu",
     "lm_track": "lm_track.cu",
     "sim3_track": "sim3_track.cu",
+    "epl_stereo": "epl_stereo.cu",
 }
 
 # -fmad=false: the kernels must round like the JAX lattice, which never

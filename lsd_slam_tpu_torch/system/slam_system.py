@@ -22,11 +22,10 @@ every mode of the JAX engine, `sequential` x `pipeline_lag`:
   and tracking only tracks. system/async_mapping.py holds the threads and
   their rules on the card (one stream; a worker's failure is re-raised in
   the caller at the next `track_frame`, `block_until_mapped` or
-  `finalize`). Port-only: a frame waits while more than
-  `max_unmapped_frames` tracked frames are unmapped, so tracking never
-  runs more than that ahead of the keyframe the mapping thread maintains,
-  and a lost frame waits for the constraint searches of the keyframes
-  already finished before the relocaliser votes with their graph.
+  `finalize`). Tracking runs at its own pace, as in the JAX engine (the
+  mapping queue drops past its cap). Port-only: a lost frame waits for the
+  constraint searches of the keyframes already finished before the
+  relocaliser votes with their graph.
 Keyframe selection, tracking-loss handling, the keyframe switch (finish,
 re-activate or propagate, install), the back-end hooks and finalize follow
 the JAX engine line by line. `enable_slam=False` is visual odometry only.
@@ -147,15 +146,6 @@ def frame_step(tracker: SE3Tracker, cam: Camera, cfg: LSDConfig, state, ref,
 
 
 class SlamSystem:
-    # Back-pressure of the threaded mode at lag 0 (port-only): tracked
-    # frames that may wait for the mapping thread before the next frame is
-    # tracked. The JAX engine and the reference let tracking run ahead
-    # (the queue drops past its cap). On the card the LM kernel tracks a
-    # frame in a fraction of a mapping sweep; run ahead, tracking stays on
-    # a keyframe the mapping thread has not replaced yet until it loses
-    # the frame.
-    max_unmapped_frames = 1
-
     def __init__(self, cam: Camera, cfg: LSDConfig = LSDConfig(),
                  enable_slam: bool = True, seed: int = 0, device=None,
                  multihost=None):
@@ -338,9 +328,6 @@ class SlamSystem:
                 self._attempt_relocalization(pyr, frame_id, timestamp)
             return None
 
-        if self.mapping_thread is not None:
-            self.mapping_thread.wait_for_room(self.max_unmapped_frames)
-            self.raise_worker_error()
         kf = self.current_keyframe
         my_create_flag = self.create_new_keyframe
         inline_map = self.cfg.system.sequential or self._lag > 0

@@ -154,30 +154,35 @@ def test_back_pressure_returns_when_the_mapping_thread_fails():
             sys_.finalize()
 
 
-def test_threaded_track_frame_waits_for_room_first(monkeypatch):
-    """A threaded frame waits for the mapping thread (at most
-    `max_unmapped_frames` unmapped) before it reads the keyframe it
-    tracks on."""
+def test_threaded_track_frame_runs_ahead_of_the_mapping_thread():
+    """A threaded frame never waits for the mapping thread, as in the JAX
+    engine: with the mapping thread held, three frames are tracked and
+    queued unmapped; released, it maps them all."""
     sys_ = SlamSystem(CAM, THREADED, device="cpu")
+    gate = threading.Event()
     try:
         scene = synth.PlaneScene(seed=3)
         poses = synth.orbit_trajectory(2)
         img0, dep0 = synth.render(scene, CAM, poses[0], device="cpu")
         img1, _ = synth.render(scene, CAM, poses[1], device="cpu")
         sys_.gt_depth_init(img0, dep0, 0, 0.0)
-        calls = []
-        real = sys_.mapping_thread.wait_for_room
+        real = sys_.do_mapping_iteration_batch
+        batches = []
 
-        def wait(limit, timeout=60.0):
-            calls.append((limit, sys_.mapping_thread._pending))
-            return real(limit, timeout)
-        monkeypatch.setattr(sys_.mapping_thread, "wait_for_room", wait)
-        sys_.track_frame(img1, 1, 1 / 30.0)
-        sys_.track_frame(img1, 2, 2 / 30.0)
-        assert [c[0] for c in calls] == [SlamSystem.max_unmapped_frames] * 2
-        assert calls[0][1] == 0
+        def held(batch):
+            assert gate.wait(30.0)
+            batches.append(len(batch))
+            return real(batch)
+        sys_.do_mapping_iteration_batch = held
+        for i in (1, 2, 3):
+            sys_.track_frame(img1, i, i / 30.0)
+        assert sys_.mapping_thread._pending == 3
+        assert not batches
+        gate.set()
         sys_.block_until_mapped(30.0)
+        assert sum(batches) == 3 and sys_.tracking_is_good
     finally:
+        gate.set()
         sys_.finalize()
 
 

@@ -36,8 +36,11 @@ from lsd_slam_tpu.utils import synth
 
 from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import LSDConfig
+from lsd_slam_tpu_torch import lie as tlie
 from lsd_slam_tpu_torch.depth import observe as tobs
-from lsd_slam_tpu_torch.depth.depth_map import observe_program
+from lsd_slam_tpu_torch.depth import regularize as treg
+from lsd_slam_tpu_torch.depth.depth_map import export_arrays, observe_program
+from lsd_slam_tpu_torch.ops import epl_stereo
 from lsd_slam_tpu_torch.interop import (depth_state_from_dict,
                                         frame_pyramid_from_dict)
 
@@ -145,9 +148,8 @@ def test_line_stereo_codes_match(observed):
     np.testing.assert_allclose(tepl, jepl, rtol=1e-4, atol=1e-5)
 
 
-def test_observe_state_matches(observed):
-    j_state, _, _ = observed["j"]
-    t_state = observed["t"][0]
+def _assert_state_bounds(j_state, t_state):
+    """The module's bounds on a state against the JAX package's."""
     a, b = to_dict(j_state), np_(t_state)
     n = a["valid"].size
     for key in ("valid", "blacklisted"):
@@ -161,6 +163,11 @@ def test_observe_state_matches(observed):
                                    atol=1e-7, err_msg=key)
 
 
+def test_observe_state_matches(observed):
+    j_state, _, _ = observed["j"]
+    _assert_state_bounds(j_state, observed["t"][0])
+
+
 def test_observe_stats_and_export_match(observed):
     _, j_stats, j_export = observed["j"]
     _, t_stats, t_export = observed["t"]
@@ -172,3 +179,162 @@ def test_observe_stats_and_export_match(observed):
     np.testing.assert_allclose(float(t_export[2]), float(j_export[2]),
                                rtol=1e-4)
     assert abs(int(t_export[3]) - int(j_export[3])) <= 0.002 * W * H
+
+
+# ---------------------------------------------- the sweep's four stages
+
+def _staged(o):
+    """`observe`'s stages called one by one (set-up, compaction, search,
+    fusion), then fill holes, regularize and the export, as
+    observe_program runs them."""
+    inp, tkf, tcfg = o["inputs"], o["tkf"], o["tcfg"]
+    dcfg, mcfg = tcfg.depth, tcfg.mapping
+    state, ref_to_kf = inp["state"], inp["ref_to_kf"]
+    from lsd_slam_tpu_torch.depth.depth_map import upsample_mask
+    good = upsample_mask(inp["good_mask"], tcfg)
+    setup = tobs.epl_setup(state, tkf.images[0], tkf.max_grad[0],
+                           ref_to_kf[None, 4:7], [o["ref_id"]], good[None],
+                           o["tcam"], dcfg, mcfg)
+    flat_idx, valid_k = tobs.compact_active(
+        setup.process, tobs.frame_shift(o["ref_id"], W * H), o["budget"])
+    terms = tobs.frame_terms(tlie.se3_inverse(ref_to_kf),
+                             0.25 * (1.0 + inp["residual"]), o["tcam"])
+    grids = tobs.epl_search(setup, flat_idx, valid_k, tkf.images[0],
+                            tkf.gx[0], tkf.gy[0], inp["ref_img"][None],
+                            terms, o["tcam"], dcfg, mcfg)
+    swept, stats = tobs.fuse(state, setup, grids, valid_k, tkf.max_grad[0],
+                             [o["ref_id"]], 3.0, dcfg)
+    out = treg.fill_holes(swept, tkf.max_grad[0], dcfg, mcfg.min_use_grad)
+    out = treg.regularize(out, False, dcfg.val_sum_min_for_keep, dcfg,
+                          mcfg.depth_smoothing_factor)
+    return swept, stats, out, export_arrays(out)
+
+
+def test_staged_sweep_meets_the_jax_bounds(observed):
+    """The sweep's stages, called one by one, give `observe_program`'s
+    state, stats and export bit for bit and so hold the JAX bounds."""
+    _, stats, state, export = _staged(observed)
+    t_state, t_stats, t_export = observed["t"]
+    for f in ("valid", "idepth", "var", "validity", "blacklisted",
+              "next_min_id", "idepth_smoothed", "var_smoothed"):
+        assert torch.equal(getattr(state, f), getattr(t_state, f)), f
+    for key in tobs.OBSERVE_STAT_KEYS:
+        assert int(stats[key]) == int(t_stats[key]), key
+    assert float(export[2]) == float(t_export[2])
+    j_state, j_stats, _ = observed["j"]
+    _assert_state_bounds(j_state, state)
+    for key in tobs.OBSERVE_STAT_KEYS:
+        a, b = float(j_stats[key]), float(stats[key])
+        assert abs(a - b) <= 0.002 * max(float(j_stats["active"]), 1.0), key
+
+
+# ------------------------------------------------------------- routing
+
+def _count(calls, name, fn):
+    def call(*a, **k):
+        calls.append(name)
+        return fn(*a, **k)
+    return call
+
+
+def test_cpu_tensors_take_the_plain_versions(observed, monkeypatch):
+    """CPU tensors reach the three plain versions, never a kernel
+    wrapper."""
+    calls = []
+    for name in ("epl_setup_plain", "epl_search_plain", "fuse_plain"):
+        monkeypatch.setattr(tobs, name, _count(calls, name,
+                                               getattr(tobs, name)))
+
+    def no_kernel(*a, **k):
+        raise AssertionError("kernel wrapper reached with CPU tensors")
+    for name in epl_stereo.KERNELS:
+        monkeypatch.setattr(epl_stereo, name, no_kernel)
+    _staged(observed)
+    assert calls == ["epl_setup_plain", "epl_search_plain", "fuse_plain"]
+
+
+def _meta_setup():
+    f32, b8 = dict(dtype=torch.float32), dict(dtype=torch.bool)
+    grid = lambda **k: torch.empty(8, 8, device="meta", **k)  # noqa: E731
+    return tobs.EplSetup(
+        epx=grid(**f32), epy=grid(**f32), epl_ok=grid(**b8),
+        can_update=grid(**b8), can_create=grid(**b8), process=grid(**b8),
+        prior=grid(**f32), min_id=grid(**f32), max_id=grid(**f32),
+        k_sel=grid(dtype=torch.int64))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("kernel", epl_stereo.KERNELS)
+def test_kernel_wrappers_refuse_other_devices(observed, kernel, device):
+    """Each wrapper launches its kernel or raises: no tensor off the card
+    is computed on (a CPU tensor reaches a wrapper only when called
+    directly; the routing sends it to the plain version)."""
+    from lsd_slam_tpu_torch.depth.state import DepthMapState
+    o = observed
+    tcfg = o["tcfg"]
+    dcfg, mcfg = tcfg.depth, tcfg.mapping
+    grid = lambda dtype=torch.float32: torch.zeros(  # noqa: E731
+        8, 8, dtype=dtype, device=device)
+    state = DepthMapState.empty(8, 8, device=device)
+    setup = _meta_setup() if device == "meta" else tobs.EplSetup(
+        *(torch.zeros(8, 8, dtype=t.dtype) for t in _meta_setup()[:10]))
+    with pytest.raises(ValueError, match="unsupported device"):
+        if kernel == "epl_prepare":
+            epl_stereo.epl_prepare(
+                state, grid(), grid(), torch.zeros(1, 3, device=device),
+                [1.0], grid(torch.bool)[None], o["tcam"], dcfg, mcfg)
+        elif kernel == "epl_stereo":
+            terms = tobs.FrameTerms(*(torch.zeros(s, device=device) for s in (
+                (1, 3, 3), (1, 3), (1, 3, 3), (1, 3), (1,))))
+            epl_stereo.epl_stereo(
+                setup, torch.zeros(4, dtype=torch.int64, device=device),
+                torch.zeros(4, dtype=torch.bool, device=device), grid(),
+                grid(), grid(), grid()[None], terms, o["tcam"], dcfg, mcfg)
+        else:
+            grids = tobs.StereoGrids(grid(torch.int32), grid(), grid(),
+                                     grid())
+            epl_stereo.observe_fuse(state, setup, grids, grid(), [1.0],
+                                    3.0, dcfg)
+
+
+def test_routing_sends_other_devices_to_the_kernels(observed):
+    """The routing takes the plain version only on the CPU: a tensor on
+    any other device goes to the kernel wrapper, which raises."""
+    o = observed
+    tcfg = o["tcfg"]
+    state = tobs.DepthMapState.empty(8, 8, device="meta")
+    grid = torch.zeros(8, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tobs.epl_setup(state, grid, grid, torch.zeros(1, 3, device="meta"),
+                       [1.0], torch.zeros(1, 8, 8, dtype=torch.bool,
+                                          device="meta"), o["tcam"],
+                       tcfg.depth, tcfg.mapping)
+
+
+def test_params_round_like_the_plain_version(observed):
+    """Every float constant the kernels get is the f32 torch uses for the
+    same Python constant (or Python expression) in the plain version."""
+    o = observed
+    cam, dcfg, mcfg = o["tcam"], o["tcfg"].depth, o["tcfg"].mapping
+    prm = epl_stereo.make_params(cam, dcfg, mcfg, H, W, [4.0, 5.0],
+                                 budget=8192, skip_inc=3.0)
+    f = np.float32
+    b = float(dcfg.sample_point_to_border)
+    want = dict(
+        fx=f(cam.fx), cx_fx=f(cam.cx / cam.fx), cy_fy=f(cam.cy / cam.fy),
+        neg_fy=f(-cam.fy), inv_min_depth=f(1.0 / dcfg.min_depth),
+        half_min_crop=f(0.5 * dcfg.min_epl_length_crop),
+        w_border=f(W - b), h_border=f(H - b), kf_u_hi=f(W - 1.001),
+        ref_v_hi=f(2 * H - 1.001), ref_by_hi=f(2 * H - 4.0),
+        err_big=f(4.0 * dcfg.max_error_stereo),
+        photo_num=f(4.0 * mcfg.camera_pixel_noise2),
+        succ_var_inc=f(dcfg.succ_var_inc_fac), skip_inc=f(3.0))
+    for key, value in want.items():
+        assert getattr(prm, key) == value, key
+    assert (prm.multi, prm.n_ref, prm.n_pix, prm.budget) == (1, 2, W * H,
+                                                             8192)
+    assert list(prm.ids)[:3] == [4.0, 5.0, 0.0]
+    assert prm.cap_fac == float(f(dcfg.validity_counter_max_variable)
+                                * f(1.0 / 255.0))
+    with pytest.raises(ValueError, match="reference frames"):
+        epl_stereo.make_params(cam, dcfg, mcfg, H, W, [1.0] * 17)

@@ -33,6 +33,7 @@ from lsd_slam_tpu.depth.depth_map import DepthMap as JaxDepthMap
 from lsd_slam_tpu.frames import build_frame as jbuild_frame
 from lsd_slam_tpu.utils import synth
 
+from lsd_slam_tpu_torch import lie as tlie
 from lsd_slam_tpu_torch.camera import Camera
 from lsd_slam_tpu_torch.config import LSDConfig
 from lsd_slam_tpu_torch.depth import observe as tobs
@@ -155,10 +156,16 @@ def test_make_epl_multi_matches_jax(setup):
     np.testing.assert_allclose(np_(ty), np.asarray(jy), rtol=1e-5, atol=1e-6)
 
 
-def test_observe_multi_matches_jax(setup):
+@pytest.fixture(scope="module")
+def jax_multi4(setup):
+    """The JAX sweep over frames 0-3, shared by the tests against it."""
+    return _jax_multi(setup, [0, 1, 2, 3])
+
+
+def test_observe_multi_matches_jax(setup, jax_multi4):
     s = setup
     ks = [0, 1, 2, 3]
-    j_state, j_stats = _jax_multi(s, ks)
+    j_state, j_stats = jax_multi4
     t_state, t_stats = _port_multi(s, ks)
     _assert_state_match(np_(t_state), to_dict(j_state))
     assert float(j_stats["updated"]) > 1000
@@ -233,3 +240,88 @@ def test_update_keyframe_multi_two_chunks_matches_jax(setup):
     assert float(t_stats["updated"]) > 1000
     np.testing.assert_allclose(t_export[2], j_export[2], rtol=1e-4)
     assert abs(t_export[3] - j_export[3]) <= 0.002 * W * H
+
+
+# ------------------------------ the sweep's stages, the kernels' routing
+
+def _stage_inputs(s, ks):
+    """The multi sweep's inputs over frames `ks`, as observe_multi takes
+    them (good masks at full resolution)."""
+    p = s["tpyr"]
+    return dict(
+        state=s["tstate"], kf_img=p.images[0], kf_gx=p.gx[0], kf_gy=p.gy[0],
+        kf_max_grad=p.max_grad[0],
+        ref_stack=_t(np.stack([s["imgs"][k] for k in ks])),
+        ref_to_kf=_t(np.stack([s["r2ks"][k] for k in ks])),
+        ids=[s["ids"][k] for k in ks],
+        good=_t(np.stack([np.repeat(np.repeat(s["gms"][k], 2, 0), 2, 1)
+                          for k in ks]), torch.bool),
+        residual=_t([s["residuals"][k] for k in ks]))
+
+
+def _staged_multi(s, c):
+    """observe_multi's stages called one by one."""
+    cfg = s["tcfg"]
+    dcfg, mcfg = cfg.depth, cfg.mapping
+    setup = tobs.epl_setup(c["state"], c["kf_img"], c["kf_max_grad"],
+                           c["ref_to_kf"][:, 4:7], c["ids"], c["good"],
+                           s["tcam"], dcfg, mcfg)
+    flat_idx, valid_k = tobs.compact_active(
+        setup.process, tobs.frame_shift(c["ids"][-1], W * H), B)
+    terms = tobs.frame_terms(tlie.se3_inverse(c["ref_to_kf"]),
+                             0.25 * (1.0 + c["residual"]), s["tcam"])
+    grids = tobs.epl_search(setup, flat_idx, valid_k, c["kf_img"],
+                            c["kf_gx"], c["kf_gy"], c["ref_stack"], terms,
+                            s["tcam"], dcfg, mcfg)
+    state, stats = tobs.fuse(c["state"], setup, grids, valid_k,
+                             c["kf_max_grad"], c["ids"], 3.0, dcfg)
+    return setup, (flat_idx, valid_k), terms, grids, state, stats
+
+
+@pytest.mark.parametrize("ks", [[0, 1, 2, 3], list(range(8))])
+def test_setup_for_the_selected_frame_equals_the_gathered_stack(setup, ks):
+    """The per-pixel set-up runs makeAndCheckEPL for each pixel's selected
+    frame alone; that equals make_epl_multi's (K, H, W) stack gathered at
+    k_sel bit for bit, and JAX's make_epl_multi gathered there within
+    test_make_epl_multi_matches_jax's bound."""
+    s = setup
+    c = _stage_inputs(s, ks)
+    st = tobs.epl_setup_plain(c["state"], c["kf_img"], c["kf_max_grad"],
+                              c["ref_to_kf"][:, 4:7], c["ids"], c["good"],
+                              s["tcam"], s["tcfg"].depth, s["tcfg"].mapping)
+    k_sel = st.k_sel
+    assert len(torch.unique(k_sel)) >= min(len(ks), 3)
+    (tx, ty), tok = tobs.make_epl_multi(c["ref_to_kf"][:, 4:7], c["kf_img"],
+                                        s["tcam"], s["tcfg"].depth)
+    gathered = [torch.gather(a, 0, k_sel[None])[0] for a in (tx, ty, tok)]
+    for got, want in zip((st.epx, st.epy, st.epl_ok), gathered):
+        if got.dtype.is_floating_point:
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        else:
+            assert torch.equal(got, want)
+    t_stack = np.stack([s["r2ks"][k][4:7] for k in ks]).astype(np.float32)
+    (jx, jy), jok = jax.jit(lambda t, img: jobs.make_epl_multi(
+        t, img, s["cam"], s["jcfg"].depth))(jnp.asarray(t_stack),
+                                            s["pyr"].images[0])
+    kk = np_(k_sel)[None]
+    pick = lambda a: np.take_along_axis(np.asarray(a), kk, 0)[0]  # noqa
+    np.testing.assert_array_equal(np_(st.epl_ok), pick(jok))
+    np.testing.assert_allclose(np_(st.epx), pick(jx), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np_(st.epy), pick(jy), rtol=1e-5, atol=1e-6)
+
+
+def test_staged_multi_sweep_meets_the_jax_bounds(setup, jax_multi4):
+    """observe_multi's stages called one by one give observe_multi's state
+    and stats bit for bit, and hold the JAX package's multi-ref bound."""
+    s = setup
+    ks = [0, 1, 2, 3]
+    *_, state, stats = _staged_multi(s, _stage_inputs(s, ks))
+    t_state, t_stats = _port_multi(s, ks)
+    for f in FIELDS + ("next_min_id",):
+        assert torch.equal(getattr(state, f), getattr(t_state, f)), f
+    j_state, j_stats = jax_multi4
+    _assert_state_match(np_(state), to_dict(j_state))
+    for key in tobs.OBSERVE_STAT_KEYS:
+        assert int(stats[key]) == int(t_stats[key]), key
+        a, b = float(j_stats[key]), float(stats[key])
+        assert abs(a - b) <= 0.002 * max(float(j_stats["active"]), 1.0), key
