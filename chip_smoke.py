@@ -259,9 +259,21 @@ raises, so the script exits non-zero and prints no ok line:
                (`rounded_sqrt`); a second launch of each and a second
                sweep bit for bit; CUDA-event ms of each kernel and of its plain version on
                the card beside its bound (`epl_bounds`), the whole sweep's
-               device ms and host us per sweep against the plain route.
-               Then K = 10's two chunks: chunk 1 on the card and on the CPU
-               port, chunk 2 from the CPU's chunk-1 state on both. Every
+               device ms and host us per sweep against the plain route;
+               `epl_stereo` with no code apart from the plain version and
+               every point bit-equal with a correctly rounded sqrt, no
+               host wait in the sweep; the sweep again with the CPU's
+               frame terms copied to the card, its pixels off each
+               reference logged. On every case's set-up and compaction
+               the search at every group size (EPL_GROUPS: the source
+               built at each other kGroup) gives the package kernel's
+               bits on every slot, their ms in turns and each one's clock
+               stamps (the median cycles of a slot's gathers, endpoints,
+               lattice, scans and tail). Then [vo]'s sweep built to tie
+               and to hold NaNs (`ties_case`), and K = 10's two chunks:
+               chunk 1 on the card and on the CPU port, chunk 2 from the
+               CPU's chunk-1 state on both, every group size on each of
+               the card's three chunk sweeps. Every
                card path ([vo], the SLAM phases, [observe-multi], [cli],
                [multihost], [warmup]) launches the three kernels, once a
                sweep each, and calls no plain version of the sweep
@@ -317,10 +329,15 @@ and at every launch of [lm]'s Sim(3) cases checks that it gives the same
 bits on every lane at every cluster size, prints its phase split per
 direction and its ms in turns with the current kernel (and the search's).
 
-    python3 chip_smoke.py --epl-only
+    python3 chip_smoke.py --epl-only [--baseline-epl-cu BASELINE.cu]
 
 runs only the build, [vo] (its sweeps recorded) and [epl]: one short
-call.
+call. `--baseline-epl-cu baselines/epl_stereo_2bd7213.cu` (here or in the
+full run) also builds that file, commit 2bd7213's csrc/epl_stereo.cu (the
+search one thread a slot) with the search's clock stamps added (any other
+file is refused, by its sha256), and runs its search beside the others on
+every [epl] case: the same bits on every slot, its stamp split, its ms in
+turns.
 
     python3 chip_smoke.py --epl-turns
 
@@ -367,6 +384,7 @@ import hashlib
 import itertools
 import json
 import math
+import re
 import os
 import statistics
 import struct
@@ -1954,11 +1972,12 @@ def epl_sweep(O, c):
                            point_budget=c["budget"])
 
 
-def epl_stages(O, lie, c, plain=False):
+def epl_stages(O, lie, c, plain=False, terms=None):
     """The case's sweep stage by stage, as the entry runs it: the routed
     stages (the kernels on the card, the plain versions on the CPU) or,
     with `plain`, every stage on its plain version (torch ops on the
-    case's device: what the card ran before the kernels). Returns
+    case's device: what the card ran before the kernels). `terms` (on the
+    case's device) replaces the FrameTerms the sweep computes. Returns
     (set-up, search grids, new state, stats)."""
     h, w = c["kf_img"].shape
     setup_fn, search_fn, fuse_fn = (
@@ -1970,7 +1989,8 @@ def epl_stages(O, lie, c, plain=False):
     flat_idx, valid_k = O.compact_active(
         setup.process, O.frame_shift(c["ids"][-1], h * w), c["budget"])
     grids = search_fn(setup, flat_idx, valid_k, c["kf_img"], c["kf_gx"],
-                      c["kf_gy"], c["ref_stack"], epl_terms(O, lie, c),
+                      c["kf_gy"], c["ref_stack"],
+                      epl_terms(O, lie, c) if terms is None else terms,
                       c["cam"], c["dcfg"], c["mcfg"])
     new, stats = fuse_fn(c["state"], setup, grids, valid_k,
                          c["kf_max_grad"], c["ids"], c["skip_inc"],
@@ -2136,6 +2156,250 @@ def check_state(tag, got, want, n_active, stats_got, stats_want,
     return err, abs_err, float(same.mean()), off
 
 
+# sha256 of the one source --baseline-epl-cu takes:
+# baselines/epl_stereo_2bd7213.cu, commit 2bd7213's kernels (the search
+# one thread a slot, on a grid over the whole budget) with the search's
+# clock stamps; its LsdEplPtrs and LsdEplParams are today's
+EPL_STAMPED_SHA256 = (
+    "147e05bddcdd505b8d93b18f4d564b4b480b5c28ffc2e7d0ec27924af238b139")
+# the group sizes [epl] builds csrc/epl_stereo.cu at (kGroup)
+EPL_GROUPS = (8, 16, 32)
+# the search kernels [epl] runs beside the package's on every case's
+# set-up and compaction: name -> library (the source at each other group
+# size, and with --baseline-epl-cu commit 2bd7213's kernel as "2bd7213")
+EPL_SEARCHES = {}
+
+
+def source_group() -> int:
+    """kGroup of csrc/epl_stereo.cu: the lanes that search one slot."""
+    with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "csrc",
+                           "epl_stereo.cu")) as f:
+        return int(re.search(r"constexpr int kGroup = (\d+);",
+                             f.read()).group(1))
+
+
+def epl_group_sources(build):
+    """csrc/epl_stereo.cu at each other group size of EPL_GROUPS (its line
+    of kGroup changed, nothing else), written into the build directory:
+    build name -> path, for build.build(sources=)."""
+    src = (build.CSRC / "epl_stereo.cu").read_text()
+    line = f"constexpr int kGroup = {source_group()};"
+    assert src.count(line) == 1, line
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for g in EPL_GROUPS:
+        if g != source_group():
+            path = build.BUILD_DIR / f"epl_stereo_g{g}.cu"
+            path.write_text(src.replace(line, f"constexpr int kGroup = {g};"))
+            out[f"epl_stereo_g{g}"] = path
+    return out
+
+
+@contextlib.contextmanager
+def epl_library(lib=None, stamps=None):
+    """While inside, ops.epl_stereo's wrappers launch the kernels of `lib`
+    (a build of EPL_SEARCHES; None: the package's own) and the search
+    writes its clock stamps into `stamps` (int64, kStampSlots = 5 a slot;
+    None: no stamps, as on every engine path)."""
+    from lsd_slam_tpu_torch.ops import epl_stereo as E
+
+    real_lib, real_launch = E._library, E._launch
+    if lib is not None:
+        E._library = lambda: lib
+    if stamps is not None:
+        def launch(name, entry, ptrs, prm, dev):
+            if name == "epl_stereo":
+                ptrs.stamps = stamps.data_ptr()
+            return real_launch(name, entry, ptrs, prm, dev)
+        E._launch = launch
+    try:
+        yield
+    finally:
+        E._library, E._launch = real_lib, real_launch
+
+
+def fresh_out(torch, O, setup):
+    """`setup` with new result grids holding the not-processed values (what
+    epl_prepare fills), for another launch of the search on it."""
+    h, w = setup.prior.shape
+    dev = setup.prior.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    return setup._replace(out=O.StereoGrids(
+        torch.full((h, w), O.SKIP, dtype=torch.int32, device=dev),
+        torch.zeros((h, w), **f32), torch.zeros((h, w), **f32),
+        torch.full((h, w), 1e9, **f32)))
+
+
+# the parts of a slot the search's stamps split: after its gathers (and,
+# in commit 2bd7213's kernel, its descriptor), its endpoints, its lattice
+# (and, in the group kernel, the descriptor's taps), its scans and tail
+EPL_STAMP_PARTS = ("gathers", "endpoints", "lattice", "scans_tail")
+
+
+def epl_stamp_split(torch, setup, args, lib, clock_mhz):
+    """One launch of a search kernel with its clock stamps: the median
+    cycles (and us at `clock_mhz`) of each part of a slot's chain, and of
+    the whole slot, over the searched slots."""
+    from lsd_slam_tpu_torch.depth import observe as O
+    from lsd_slam_tpu_torch.ops import epl_stereo as E
+
+    flat_idx, valid_k = args[0], args[1]
+    stamps = torch.zeros(flat_idx.shape[0] * 5, dtype=torch.int64,
+                         device=flat_idx.device)
+    with epl_library(lib, stamps):
+        E.epl_stereo(fresh_out(torch, O, setup), *args)
+    st = stamps.view(-1, 5)[valid_k].cpu().numpy()
+    if not st.size:
+        return {}
+    cyc = {k: float(np.median(st[:, i + 1] - st[:, i]))
+           for i, k in enumerate(EPL_STAMP_PARTS)}
+    cyc["slot"] = float(np.median(st[:, 4] - st[:, 0]))
+    cyc["slot_p90"] = float(np.percentile(st[:, 4] - st[:, 0], 90))
+    return {k: dict(cycles=v, us=v / clock_mhz) for k, v in cyc.items()}
+
+
+def search_variants(torch, card, name, setup, args, timed=True):
+    """The search of one set-up and compaction (`args`: epl_stereo's after
+    the set-up) by the package's kernel and by every kernel of
+    EPL_SEARCHES, each on fresh result grids: every slot's four outputs
+    must have the package kernel's bits. With `timed`, the CUDA-event ms
+    of each in turns (the package's first and last) and each one's stamp
+    split. Returns {kernel name: row}."""
+    from lsd_slam_tpu_torch.depth import observe as O
+    from lsd_slam_tpu_torch.ops import epl_stereo as E
+
+    own = f"G{source_group()}"
+    libs = {own: None, **EPL_SEARCHES}
+    grids_of = {}
+    for k, lib in libs.items():
+        fn = getattr(lib or E._library(), "lsd_epl_stereo_grid", None)
+        if fn is not None:
+            fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+            grids_of[k] = fn(int(args[0].shape[0]))
+    setups = {k: fresh_out(torch, O, setup) for k in libs}
+    grids = {}
+    for k, lib in libs.items():
+        with epl_library(lib):
+            grids[k] = E.epl_stereo(setups[k], *args)
+    torch.cuda.synchronize()
+    for k in libs:
+        assert all(_bits_equal(torch, x, y)
+                   for x, y in zip(grids[k], grids[own])), (
+            f"{name}: the {k} search's outputs differ from {own}'s")
+    rows = {k: {} for k in libs}
+    if timed:
+        def launch(k):
+            with epl_library(libs[k]):
+                E.epl_stereo(setups[k], *args)
+        t = time_in_turns(torch, [(k, functools.partial(launch, k))
+                                  for k in libs], 5, 8)
+        # the same grid with no valid slot: the launch, the frame terms'
+        # staging and one ballot a warp
+        none = (args[0], torch.zeros_like(args[1])) + tuple(args[2:])
+        empty = fresh_out(torch, O, setup)
+        empty_ms = time_gpu(torch, lambda: E.epl_stereo(empty, *none), 5, 8)
+        clock_mhz = sm_clocks_mhz()[0]
+        for k, lib in libs.items():
+            rows[k] = dict(ms=t[k], grid=grids_of.get(k),
+                           split=epl_stamp_split(torch, setup, args, lib,
+                                                 clock_mhz))
+        rows[own]["empty_ms"] = empty_ms
+        log(f"[epl] {name}: the search kernels on one set-up and "
+            f"compaction give {own}'s bits on every slot; grids (blocks) "
+            f"{grids_of}; in turns "
+            + ", ".join(f"{k} {t[k]:.5f} ms" for k in libs)
+            + f" ({own} with no valid slot {empty_ms:.5f} ms)"
+            + f"; stamp split (median cycles a slot at {clock_mhz:.0f} "
+            f"MHz): " + "; ".join(
+                f"{k}" + "".join(f" {p} {r['split'][p]['cycles']:.0f}"
+                                 for p in (*EPL_STAMP_PARTS, "slot",
+                                           "slot_p90")
+                                 if p in r["split"])
+                for k, r in rows.items()) + f"; {card}")
+    else:
+        log(f"[epl] {name}: the search kernels ({', '.join(libs)}) on one "
+            f"set-up and compaction give {own}'s bits on every slot")
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_searches():
+    """Record the set-up and the other arguments of every `epl_search` on
+    the card (the engine's sweeps launch `epl_stereo` there) while
+    inside. Yields the list of (set-up, arguments)."""
+    from lsd_slam_tpu_torch.depth import observe as O
+
+    seen = []
+    real = O.epl_search
+
+    def call(setup, *a):
+        out = real(setup, *a)
+        if setup.prior.device.type == "cuda":
+            seen.append((setup, a))
+        return out
+
+    O.epl_search = call
+    try:
+        yield seen
+    finally:
+        O.epl_search = real
+
+
+def ties_case(torch, card, c):
+    """[epl] on inputs built to tie and to hold NaNs, from a case's set-up
+    and compaction on the card: every reference frame constant (100) but
+    for a block of NaN pixels (a slot's steps all tie, or NaN samples make
+    steps NaN: the first minimum, the first NaN), and NaN far bounds
+    (max_id) at a tenth of the pixels (every lattice coordinate NaN, each
+    group's base (0, 0)). Every search kernel gives the package kernel's
+    bits, and the package kernel the plain version's run on the CPU with
+    a correctly rounded sqrt (NaN for NaN) at every slot."""
+    from lsd_slam_tpu_torch import lie
+    from lsd_slam_tpu_torch.depth import observe as O
+    from lsd_slam_tpu_torch.ops import epl_stereo as E
+
+    cpu = functools.partial(_moved, torch, dev="cpu")
+    h, w = c["kf_img"].shape
+    s = E.epl_prepare(c["state"], c["kf_img"], c["kf_max_grad"],
+                      c["ref_to_kf"][:, 4:7].contiguous(), c["ids"],
+                      c["good"], c["cam"], c["dcfg"], c["mcfg"])
+    flat_idx, valid_k = O.compact_active(
+        s.process, O.frame_shift(c["ids"][-1], h * w), c["budget"])
+    ref = torch.full_like(c["ref_stack"], 100.0)
+    ref[:, h * 5 // 12:h * 7 // 12, w // 6:w * 5 // 6:5] = float("nan")
+    rng = np.random.default_rng(5)
+    nan_far = torch.as_tensor(rng.uniform(size=(h, w)) < 0.1, device="cuda")
+    s = s._replace(max_id=torch.where(
+        nan_far, torch.full_like(s.max_id, float("nan")), s.max_id))
+    args = (flat_idx, valid_k, c["kf_img"], c["kf_gx"], c["kf_gy"], ref,
+            epl_terms(O, lie, c), c["cam"], c["dcfg"], c["mcfg"])
+    g = E.epl_stereo(fresh_out(torch, O, s), *args)
+    with rounded_sqrt(torch):
+        gq = O.epl_search_plain(cpu(s), *cpu(args))
+    torch.cuda.synchronize()
+    slots = flat_idx[valid_k].cpu().numpy()
+    a = {f: getattr(g, f).cpu().numpy().reshape(-1)[slots]
+         for f in O.StereoGrids._fields}
+    b = {f: getattr(gq, f).numpy().reshape(-1)[slots]
+         for f in O.StereoGrids._fields}
+    same = np.ones(slots.size, bool)
+    for f in a:
+        eq = a[f].view(np.int32) == b[f].view(np.int32)
+        if a[f].dtype.kind == "f":
+            eq |= np.isnan(a[f]) & np.isnan(b[f])
+        same &= eq
+    codes = {int(k): int(n) for k, n in zip(*np.unique(a["code"],
+                                                       return_counts=True))}
+    assert (a["code"] == b["code"]).all() and same.all(), (
+        "ties", int((a["code"] != b["code"]).sum()), int((~same).sum()))
+    assert codes.get(O.ERR_NAN, 0) > 0 and codes.get(O.OK, 0) > 0, codes
+    log(f"[epl] ties and NaNs ({slots.size} slots, codes {codes}): the "
+        f"package kernel gives the CPU plain version's codes and, with a "
+        f"correctly rounded sqrt, its bits (NaN for NaN) at every slot")
+    search_variants(torch, card, "ties and NaNs", s, args, timed=False)
+    return dict(points=int(slots.size), codes=codes)
+
+
 def epl_bounds(c, n_valid):
     """(bytes, operations) of each kernel on the case's inputs, each input
     read once and each output written once, each field at its dtype's
@@ -2282,6 +2546,14 @@ def epl_case(torch, card, name, c):
         f"rounded sqrt {row['epl_stereo']['bit_equal_share_rounded_sqrt']:.6f}"
         f"), max rel err (idepth, var where both OK; EPL length where the "
         f"codes agree) {serr:.3g}; second launch bit-equal")
+    assert (a["code"] == q["code"]).all() and same_q.all(), (
+        f"{name}: epl_stereo against the plain version with a correctly "
+        f"rounded sqrt", int((a["code"] != q["code"]).sum()),
+        int((~same_q).sum()))
+    # every search kernel (each group size, commit 2bd7213's) on this
+    # set-up and compaction: the same bits, ms in turns, the stamps' split
+    row["epl_stereo"]["searches"] = search_variants(torch, card, name, s1,
+                                                    stereo_args)
 
     # -- observe_fuse on the card's set-up and results: the same inputs,
     # so every pixel is held and the counts are equal (each launch adds
@@ -2359,6 +2631,34 @@ def epl_case(torch, card, name, c):
             f"err {werr:.3g}, stats {ws1} ({ref_name} {r_stats})")
     log(f"[epl] {name}: a second sweep bit-equal; the stages give the "
         f"entry's bits on the card and on the CPU")
+    # the sweep on the card with the frame terms (pose inverse, K*R, K*t)
+    # computed on the CPU as each reference computes them, then copied:
+    # which of the pixels off each reference the frame terms explain
+    for ref_name, rounded in (("the CPU port", False),
+                              ("the CPU port with a correctly rounded sqrt",
+                               True)):
+        with rounded_sqrt(torch) if rounded else contextlib.nullcontext():
+            terms = _moved(torch, epl_terms(O, lie, c_cpu), "cuda")
+        r_setup, r_grids, r_state, r_stats = refs[ref_name]
+        r_stats = _ints(r_stats)
+        ct = epl_stages(O, lie, c, terms=terms)
+        ct_stats = _ints(ct[3])
+        apart = inputs_apart(O, ct[0], ct[1], r_setup, r_grids)
+        codes_off = ((ct[1].code.cpu() != r_grids.code)
+                     | (ct[0].process.cpu() != r_setup.process)).numpy()
+        _, _, tsame, off = check_state(
+            f"{name} sweep with the CPU's frame terms, {ref_name}", ct[2],
+            r_state, r_stats["active"], ct_stats, r_stats, apart, codes_off)
+        entry = row["sweep"] if not rounded else row["sweep"]["rounded_sqrt"]
+        entry["cpu_frame_terms"] = dict(
+            off=int(off.sum()), inputs_apart=int(apart.sum()),
+            bit_equal_share=tsame, stats_equal=ct_stats == r_stats)
+        log(f"[epl] {name}: the sweep on the card with {ref_name}'s frame "
+            f"terms (computed on the CPU, copied): {int(off.sum())} pixels "
+            f"off it (with the card's frame terms {entry['off']}), fusion "
+            f"inputs apart at {int(apart.sum())} "
+            f"(with the card's {entry['inputs_apart']}), share of bit-equal "
+            f"pixels {tsame:.6f}, stats equal {ct_stats == r_stats}")
 
     # -- timings, beside the bounds
     plain_card = {
@@ -2403,6 +2703,7 @@ def epl_case(torch, card, name, c):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     row["sweep"]["host_waits"] = synced
+    assert synced == "none", (name, synced)
     log(f"[epl] {name}: the sweep's first host wait for the card (torch's "
         f"sync debug mode): {synced}")
     shift = O.frame_shift(c["ids"][-1], n_pix)
@@ -2481,7 +2782,8 @@ def epl_kernel_rows(rows):
         "observe_fuse": (f"{jax}:501 (_fuse_results, XLA-fused jnp code; "
                          f"no Pallas counterpart)", []),
     }
-    cases = {k: v for k, v in rows.items() if k != "k10_chunks"}
+    cases = {k: v for k, v in rows.items()
+             if k not in ("k10_chunks", "ties")}
     out = []
     for name, (main, also) in replaces.items():
         vo = rows["vo"][name]
@@ -2500,6 +2802,8 @@ def epl_kernel_rows(rows):
         if name == "epl_stereo":
             entry["sweeps"] = {k: c["sweep"] for k, c in cases.items()}
             entry["k10_chunks"] = rows["k10_chunks"]
+            entry["ties"] = rows["ties"]
+            entry["group"] = source_group()
         out.append(entry)
     return out
 
@@ -2530,23 +2834,24 @@ def chunk_experiment(torch, scn):
     Chunk 1 on the card and on the CPU port; then chunk 2 from the CPU's
     chunk-1 state on both. Returns the flips after chunk 1, after chunk 2
     from one state, and after both chunks run apart (the [observe-multi]
-    K = 10 case)."""
+    K = 10 case), and the card's searches (`recorded_searches`)."""
     pyr_c, dm_c = multi_depth_map(torch, scn, "cuda")
     pyr_p, dm_p = multi_depth_map(torch, scn, "cpu")
-    multi_update(torch, scn, dm_c, pyr_c, range(1, 9), "cuda")
-    multi_update(torch, scn, dm_p, pyr_p, range(1, 9), "cpu")
-    after1 = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
-    apart = dm_c.state
-    dm_c.state = _moved(torch, dm_p.state, "cuda")
-    assert dm_c.num_mapped_on_this == dm_p.num_mapped_on_this
-    multi_update(torch, scn, dm_c, pyr_c, range(9, 11), "cuda")
-    multi_update(torch, scn, dm_p, pyr_p, range(9, 11), "cpu")
-    torch.cuda.synchronize()
-    after2 = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
-    dm_c.state = apart
-    multi_update(torch, scn, dm_c, pyr_c, range(9, 11), "cuda")
-    both = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
-    return after1, after2, both
+    with recorded_searches() as searches:
+        multi_update(torch, scn, dm_c, pyr_c, range(1, 9), "cuda")
+        multi_update(torch, scn, dm_p, pyr_p, range(1, 9), "cpu")
+        after1 = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
+        apart = dm_c.state
+        dm_c.state = _moved(torch, dm_p.state, "cuda")
+        assert dm_c.num_mapped_on_this == dm_p.num_mapped_on_this
+        multi_update(torch, scn, dm_c, pyr_c, range(9, 11), "cuda")
+        multi_update(torch, scn, dm_p, pyr_p, range(9, 11), "cpu")
+        torch.cuda.synchronize()
+        after2 = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
+        dm_c.state = apart
+        multi_update(torch, scn, dm_c, pyr_c, range(9, 11), "cuda")
+        both = flip_count(dm_c.state, dm_p.state, MULTI_BOUND)
+    return after1, after2, both, searches
 
 
 def epl_phase(torch, card, vo_sweeps):
@@ -2555,8 +2860,10 @@ def epl_phase(torch, card, vo_sweeps):
     (`recorded_observe_inputs`; the last one searches none), on
     [observe-multi]'s inputs at K = 1, 3, 8 (one sweep each) and at K = 3
     on a mixed state (`with_mixed_state`: the fusion's create, blacklist
-    and kill branches run), then K = 10's chunk experiment. Returns the
-    kernels' rows."""
+    and kill branches run), on [vo]'s sweep built to tie and to hold NaNs
+    (`ties_case`), then K = 10's chunk experiment, every search kernel
+    (`search_variants`) on each chunk's sweep. Returns the kernels'
+    rows."""
     scn = multi_scene(torch)
     active = [int(st["active"]) for _, st in vo_sweeps]
     pick = int(np.argmax(active))
@@ -2575,9 +2882,18 @@ def epl_phase(torch, card, vo_sweeps):
     reached = {key: row["sweep"][key]
                for key in ("created", "blacklisted", "killed")}
     assert all(v > 0 for v in reached.values()), reached
-    after1, after2, both = chunk_experiment(torch, scn)
+    rows["ties"] = ties_case(torch, card,
+                             epl_case_of_observe(vo_sweeps[pick][0]))
+    after1, after2, both, searches = chunk_experiment(torch, scn)
+    # every search kernel on the chunks' own set-ups and compactions
+    names = ("chunk 1", "chunk 2 from the CPU's chunk-1 state",
+             "chunk 2 run apart")
+    assert len(searches) == len(names), len(searches)
+    chunk_searches = {
+        n: search_variants(torch, card, f"K=10 {n}", setup, a)
+        for n, (setup, a) in zip(names, searches)}
     chunks = dict(after_chunk1=after1, chunk2_from_one_state=after2,
-                  chunks_apart=both)
+                  chunks_apart=both, searches=chunk_searches)
     log(f"[epl] K=10 chunks (flipped EPL decisions, dither-only pixels, "
         f"largest dither step, max abs err elsewhere), card against the CPU "
         f"port: after chunk 1 (frames 1-8) {after1}; chunk 2 (frames 9-10) "
@@ -5044,6 +5360,10 @@ def main() -> int:
                     "by its sha256), for its bits at every cluster size, "
                     "its phase split and its ms in turns in [lm]'s Sim(3) "
                     "cases")
+    ap.add_argument("--baseline-epl-cu",
+                    help="baselines/epl_stereo_2bd7213.cu (checked by its "
+                    "sha256), for its bits, its stamp split and its ms in "
+                    "turns on every [epl] case")
     ap.add_argument("--pipeline-turns", action="store_true",
                     help="only time lag 0 against lag 3, in turns")
     ap.add_argument("--lm-turns", action="store_true",
@@ -5143,6 +5463,16 @@ def main() -> int:
                   file=sys.stderr)
             return 2
         extra["sim3_baseline"] = os.path.abspath(args.baseline_sim3_cu)
+    if args.baseline_epl_cu:
+        with open(args.baseline_epl_cu, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        if digest != EPL_STAMPED_SHA256:
+            print(f"chip_smoke: {args.baseline_epl_cu} (sha256 {digest}) is "
+                  "not baselines/epl_stereo_2bd7213.cu, the only source "
+                  "whose ABI --baseline-epl-cu binds", file=sys.stderr)
+            return 2
+        extra["epl_baseline"] = os.path.abspath(args.baseline_epl_cu)
+    extra.update(epl_group_sources(build))
     secs = build.build(verbose=True, sources=extra)
     log(f"[build] {json.dumps(secs)} total {time.perf_counter() - t0:.2f} s")
     if args.pipeline_turns:
@@ -5155,6 +5485,13 @@ def main() -> int:
         lm_turns(torch, card, ("kernel", "plain", "plain", "kernel"),
                  epl_route, "epl-turns")
         return 0
+    for key, path in extra.items():
+        if key.startswith("epl_stereo_g"):
+            EPL_SEARCHES[f"G{key[len('epl_stereo_g'):]}"] = ctypes.CDLL(
+                str(build.library_path(key, path)))
+    if "epl_baseline" in extra:
+        EPL_SEARCHES["2bd7213"] = ctypes.CDLL(str(build.library_path(
+            "epl_baseline", extra["epl_baseline"])))
     lm_base = sim3_base = None
     if "lm_baseline" in extra:
         lm_base = ctypes.CDLL(str(build.library_path(

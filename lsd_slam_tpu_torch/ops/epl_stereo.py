@@ -8,7 +8,8 @@ jitted `observe` / `observe_multi` (lsd_slam_tpu/depth/observe.py):
     per-pixel frame choice: one thread a pixel. Its plain version is
     `depth.observe.epl_setup_plain`.
   * `epl_stereo` — line_stereo for the compacted slots, its results written
-    into the grids at flat_idx: one thread a slot. Plain version
+    into the grids at flat_idx: a lane owns a slot's set-up and tail, a
+    group of lanes searches it, on a grid sized to the card. Plain version
     `depth.observe.epl_search_plain`.
   * `observe_fuse` — _fuse_results with its nine counts: one thread a
     pixel. Plain version `depth.observe.fuse_plain`.
@@ -68,7 +69,7 @@ _PTR_FIELDS = (
     "prior", "min_id", "max_id", "epl_ok", "can_update", "can_create",
     "process", "k_sel", "flat_idx", "valid_k", "code", "r_idepth", "r_var",
     "r_epl", "n_valid", "n_idepth", "n_var", "n_validity", "n_blacklisted",
-    "n_next_min_id", "stats")
+    "n_next_min_id", "stats", "stamps")
 
 
 class Ptrs(ctypes.Structure):

@@ -272,3 +272,43 @@ def test_sweep_on_the_card_launches_the_kernels_only(scene, case,
     after = epl_stereo.counts()
     assert all(after[k] == before[k] + 1 for k in after), (before, after)
     _assert_state(got, want, stats, want_stats)
+
+
+def test_epl_stereo_ties_and_nans(scene, monkeypatch):
+    """The search on a reference image constant but for a block of NaN
+    pixels (a slot's steps all tie, or NaN samples make steps NaN) and
+    NaN far bounds at a tenth of the pixels (every lattice coordinate
+    NaN): the plain version's codes, best and second best steps, so its
+    bits (NaN for NaN), with a correctly rounded sqrt on the CPU (numpy's,
+    as the kernel's sqrtf)."""
+    _need_card()
+    s, c = scene, _inputs(scene, FRAMES["single"])
+    st, flat_idx, valid_k, terms, _, _, _ = _plain_stages(s, c)
+    ref = torch.full_like(c["ref_stack"], 100.0)
+    ref[:, 40:70, 20:140:5] = float("nan")
+    rng = np.random.default_rng(3)
+    nan_far = torch.as_tensor(rng.uniform(size=(H, W)) < 0.1)
+    st = st._replace(max_id=torch.where(
+        nan_far, torch.full_like(st.max_id, float("nan")), st.max_id))
+    args = (flat_idx, valid_k, c["kf_img"], c["kf_gx"], c["kf_gy"], ref,
+            terms, s["cam"], s["cfg"].depth, s["cfg"].mapping)
+    real_sqrt = torch.sqrt
+
+    def sqrt(x, *a, **k):
+        if not a and not k and torch.is_tensor(x) and x.dtype == torch.float32:
+            return torch.from_numpy(np.sqrt(x.numpy()))
+        return real_sqrt(x, *a, **k)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sqrt", sqrt)
+        want = tobs.epl_search_plain(st, *args)
+    got = epl_stereo.epl_stereo(_with_buffers(st), *_on(args[:7], "cuda"),
+                                *args[7:])
+    slots = flat_idx[valid_k].numpy()
+    a = [g.cpu().numpy().reshape(-1)[slots] for g in got]
+    b = [g.numpy().reshape(-1)[slots] for g in want]
+    assert (a[0] == b[0]).all()
+    for x, y in zip(a[1:], b[1:]):
+        same = (x.view(np.int32) == y.view(np.int32)) | (
+            np.isnan(x) & np.isnan(y))
+        assert same.all(), int((~same).sum())
+    assert int((b[0] == tobs.ERR_NAN).sum()) > 50
