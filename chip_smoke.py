@@ -5233,7 +5233,7 @@ def pipeline_turns(torch, card):
             f"{run.track_s:.3f} s ({(n - 1) / run.track_s:.3f} fps); "
             f"medians frame_step {tm.median('frame_step'):.1f} ms, track "
             f"{tm.median('track'):.1f}, observe {tm.median('observe'):.1f}, "
-            f"retire_pull {tm.median('retire_pull'):.2f}, switch "
+            f"pull.pack {tm.median('pull.pack'):.2f}, switch "
             f"{tm.median('switch'):.1f}; keyframes "
             f"{[kf.id for kf in run.sys.keyframes]}; syncs per frame "
             f"{syncs / (len(run.sys.all_frame_poses) + 1):.2f}; {card}")

@@ -32,6 +32,7 @@ from lsd_slam_tpu_torch.config import LSDConfig
 from lsd_slam_tpu_torch.depth.state import DepthMapState
 from lsd_slam_tpu_torch.depth import observe as observe_mod
 from lsd_slam_tpu_torch.depth import regularize as reg_mod
+from lsd_slam_tpu_torch.utils.stats import NULL_TIMERS
 
 
 def observe_budget_full(h: int, w: int) -> int:
@@ -245,6 +246,8 @@ class DepthMap:
         self.device = torch.device(device)
         self.state: Optional[DepthMapState] = None
         self._fresh_export = None
+        # the engine's StageTimers (SlamSystem sets it): pulls are spans
+        self.timers = NULL_TIMERS
         # previous sweep's eligible-pixel count -> next sweep's budget
         self.last_active = None
         self.num_frames_tracked_on_this = 0
@@ -309,7 +312,8 @@ class DepthMap:
             new_pyr.max_grad[0], good_mask, bool(have_good_mask), self.cam,
             self.cfg)
         self._reset_counts()
-        return float(rescale)
+        with self.timers.span("pull.switch"):
+            return float(rescale)
 
     def finalize_keyframe(self, kf_max_grad):
         self._fresh_export = None
@@ -322,7 +326,8 @@ class DepthMap:
             self._fresh_export = None
         else:
             idepth0, ivar0, mean_id, num = export_arrays(self.state)
-        return idepth0, ivar0, float(mean_id), int(num)
+        with self.timers.span("pull.export"):
+            return idepth0, ivar0, float(mean_id), int(num)
 
     def reactivation_snapshot(self):
         """takeReActivationData (Frame.cpp:107-145): level-0 idepth / var /

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import math
 import random
-import time
 from collections import deque
 from typing import Dict, List, Set
 
@@ -51,6 +50,7 @@ from lsd_slam_tpu_torch.tracking.quick_tracker import QuickTracker
 from lsd_slam_tpu_torch.tracking.reference import TrackingRef
 from lsd_slam_tpu_torch.tracking.sim3_tracker import (
     SIM3_PACK as SP, Sim3Tracker, stack_refs)
+from lsd_slam_tpu_torch.utils.stats import NULL_TIMERS
 
 class Constraint:
     """== KFConstraintStruct (KeyFrameGraph.h:42-78)."""
@@ -117,6 +117,9 @@ class KeyFrameGraph:
         self.mesh = (default_mesh(self.device)
                      if cfg.system.use_device_mesh else None)
         self.pose_graph = PoseGraph(device=self.device, mesh=self.mesh)
+        # the engine's StageTimers: the search's stages and pulls are spans
+        self.timers = getattr(system, "timers", NULL_TIMERS)
+        self.pose_graph.timers = self.timers
         self.kf_to_vertex: Dict[int, int] = {}     # kf.id -> vertex idx
         self.neighbors: Dict[int, Set[int]] = {}   # kf.id -> set of kf.id
         self.edges: List[Constraint] = []
@@ -171,7 +174,9 @@ class KeyFrameGraph:
 
     def _pull_quick(self, res, n):
         """One packed (B, 11) pull for the five quick-track outputs."""
-        arr = qt.pack_result(res).cpu().numpy()
+        packed = qt.pack_result(res)
+        with self.timers.span("pull.quick"):
+            arr = packed.cpu().numpy()
         self._bump("quick_syncs", res.n_syncs)
         self._bump("backend_pulls")
         return (arr[:n, 0:7], arr[:n, 7] > 0.5, arr[:n, 8], arr[:n, 9],
@@ -220,15 +225,16 @@ class KeyFrameGraph:
         (ref_to_frame (N, 7), good (N,), usage, good_count, bad_count)."""
         if self._multihost_ready(kf_ids):
             return self._fan_out("quick_refs", frame_quad, kf_ids, inits)
-        n = len(pts_list)
-        use_mesh = self._use_mesh_batch(n)
-        b = self._pad_batch(n, use_mesh)
-        pad = qt.zeros_like_points(pts_list[0])
-        refs = qt.stack_points(list(pts_list) + [pad] * (b - n))
-        track = (self._sharded_refs if use_mesh
-                 else self.quick_tracker.track_batch_pts)
-        return self._pull_quick(track(refs, frame_quad,
-                                      self._inits(inits, n, b)), n)
+        with self.timers.span("quick_track"):
+            n = len(pts_list)
+            use_mesh = self._use_mesh_batch(n)
+            b = self._pad_batch(n, use_mesh)
+            pad = qt.zeros_like_points(pts_list[0])
+            refs = qt.stack_points(list(pts_list) + [pad] * (b - n))
+            track = (self._sharded_refs if use_mesh
+                     else self.quick_tracker.track_batch_pts)
+            return self._pull_quick(track(refs, frame_quad,
+                                          self._inits(inits, n, b)), n)
 
     def _batch_track_frames(self, ref_pts, quads_list, inits, kf_ids=None):
         """Quick-track ONE reference against N frame quad layouts (the
@@ -236,15 +242,16 @@ class KeyFrameGraph:
         `_batch_track_refs`."""
         if self._multihost_ready(kf_ids):
             return self._fan_out("quick_frames", ref_pts, kf_ids, inits)
-        n = len(quads_list)
-        use_mesh = self._use_mesh_batch(n)
-        b = self._pad_batch(n, use_mesh)
-        quads = torch.stack(list(quads_list)
-                            + [torch.zeros_like(quads_list[0])] * (b - n))
-        track = (self._sharded_frames if use_mesh
-                 else self.quick_tracker.track_batch_frames)
-        return self._pull_quick(track(ref_pts, quads,
-                                      self._inits(inits, n, b)), n)
+        with self.timers.span("quick_track"):
+            n = len(quads_list)
+            use_mesh = self._use_mesh_batch(n)
+            b = self._pad_batch(n, use_mesh)
+            quads = torch.stack(list(quads_list)
+                                + [torch.zeros_like(quads_list[0])] * (b - n))
+            track = (self._sharded_frames if use_mesh
+                     else self.quick_tracker.track_batch_frames)
+            return self._pull_quick(track(ref_pts, quads,
+                                          self._inits(inits, n, b)), n)
 
     # ------------------------------------------------------------ vertices
 
@@ -393,8 +400,10 @@ class KeyFrameGraph:
             if kf.idx_in_keyframes < kcfg.initialization_phase_count:
                 continue
             pts, _ = self._get_permaref(kf)
-            usage = self.quick_tracker.check_overlap_pts(pts, frame_quad,
-                                                         ref_to_frame)
+            usage = self.quick_tracker.overlap_pts(pts, frame_quad,
+                                                   ref_to_frame)
+            with self.timers.span("pull.overlap"):
+                usage = float(usage)
             self._bump("backend_pulls")
             score = self.system._ref_frame_score(dist_sq, usage)
             if score < max_score:
@@ -443,73 +452,75 @@ class KeyFrameGraph:
         cons_all = np.full(n, 1e20)
         last = None
         for stage, (ls, le) in enumerate(((4, 3), (2, 2), (1, 1))):
-            t_stage = time.perf_counter()
-            m = len(live)
-            pad = self._pad_batch(m)
-            levels = tuple(range(le, ls + 1))
-            refs = [cands[i].sim3_ref for i in live]
-            if pad > m:
-                # dead padding lanes get zero point sets: they diverge on
-                # the first LM iteration
-                refs = refs + [_zeros_like_ref(refs[0], levels)] * (pad - m)
-            stacked = stack_refs(refs, levels)
-            ident = nps.sim3_identity()
-            c_to_f = np.stack([c_to_f_all[i] for i in live]
-                              + [ident] * (pad - m))
-            f_to_c = np.stack([f_to_c_all[i] for i in live]
-                              + [ident] * (pad - m))
-            # both directions together: one launch per level on the card
-            pk_ba, pk_ab, syncs = self.sim3_tracker.track_pair_packed(
-                new_ref, stacked, np.asarray(c_to_f, np.float32),
-                np.asarray(f_to_c, np.float32), ls, le)
-            both = torch.stack([pk_ba, pk_ab]).cpu().numpy().astype(
-                np.float64)                                  # one pull
-            ba, ab = both[0], both[1]
-            self._bump("sim3_syncs", syncs)
-            self._bump("backend_pulls")
-            ba_pose = ba[:, SP["frame_to_ref"]]
-            ab_pose = ab[:, SP["frame_to_ref"]]
-            ba_div = ba[:, SP["diverged"]] > 0.5
-            ab_div = ab[:, SP["diverged"]] > 0.5
-            info_ba = ba[:, SP["hessian"]].reshape(-1, 7, 7)
-            info_ab = ab[:, SP["hessian"]].reshape(-1, 7, 7)
+            with self.timers.time(f"sim3_stage{stage}"):
+                m = len(live)
+                pad = self._pad_batch(m)
+                levels = tuple(range(le, ls + 1))
+                refs = [cands[i].sim3_ref for i in live]
+                if pad > m:
+                    # dead padding lanes get zero point sets: they diverge
+                    # on the first LM iteration
+                    refs = refs + [_zeros_like_ref(refs[0], levels)] * (
+                        pad - m)
+                stacked = stack_refs(refs, levels)
+                ident = nps.sim3_identity()
+                c_to_f = np.stack([c_to_f_all[i] for i in live]
+                                  + [ident] * (pad - m))
+                f_to_c = np.stack([f_to_c_all[i] for i in live]
+                                  + [ident] * (pad - m))
+                # both directions together: one launch per level on the card
+                pk_ba, pk_ab, syncs = self.sim3_tracker.track_pair_packed(
+                    new_ref, stacked, np.asarray(c_to_f, np.float32),
+                    np.asarray(f_to_c, np.float32), ls, le)
+                both = torch.stack([pk_ba, pk_ab])
+                with self.timers.span("pull.sim3"):
+                    both = both.cpu().numpy().astype(np.float64)  # one pull
+                ba, ab = both[0], both[1]
+                self._bump("sim3_syncs", syncs)
+                self._bump("backend_pulls")
+                ba_pose = ba[:, SP["frame_to_ref"]]
+                ab_pose = ab[:, SP["frame_to_ref"]]
+                ba_div = ba[:, SP["diverged"]] > 0.5
+                ab_div = ab[:, SP["diverged"]] > 0.5
+                info_ba = ba[:, SP["hessian"]].reshape(-1, 7, 7)
+                info_ab = ab[:, SP["hessian"]].reshape(-1, 7, 7)
 
-            survivors = []
-            lane_of = {}
-            for k in range(m):
-                ci = live[k]
-                cons_all[ci] = 1e20
-                if (ba_div[k] or ba_pose[k, 7] > 1e10 or ba_pose[k, 7] < 1e-10
-                        or info_ba[k, 0, 0] == 0 or info_ba[k, 6, 6] == 0
-                        or ab_div[k] or ab_pose[k, 7] > 1e10
-                        or ab_pose[k, 7] < 1e-10 or info_ab[k, 0, 0] == 0
-                        or info_ab[k, 6, 6] == 0):
-                    self._record_failure(new_kf, cands[ci], inits[ci])
-                    continue
-                adj = nps.sim3_adjoint(ab_pose[k])
-                try:
-                    diff_hesse = np.linalg.inv(
-                        np.linalg.inv(info_ab[k])
-                        + adj @ np.linalg.inv(info_ba[k]) @ adj.T)
-                except np.linalg.LinAlgError:
-                    self._record_failure(new_kf, cands[ci], inits[ci])
-                    continue
-                diff = nps.sim3_log(nps.sim3_mul(ab_pose[k], ba_pose[k]))
-                cons_all[ci] = float(diff @ diff_hesse @ diff)
-                if cons_all[ci] > th_per_stage[stage] * stricts[ci]:
-                    self._record_failure(new_kf, cands[ci], inits[ci])
-                    continue
-                f_to_c_all[ci] = ab_pose[k]
-                c_to_f_all[ci] = ba_pose[k]
-                lane_of[ci] = k
-                survivors.append(ci)
+                survivors = []
+                lane_of = {}
+                for k in range(m):
+                    ci = live[k]
+                    cons_all[ci] = 1e20
+                    if (ba_div[k] or ba_pose[k, 7] > 1e10
+                            or ba_pose[k, 7] < 1e-10
+                            or info_ba[k, 0, 0] == 0 or info_ba[k, 6, 6] == 0
+                            or ab_div[k] or ab_pose[k, 7] > 1e10
+                            or ab_pose[k, 7] < 1e-10 or info_ab[k, 0, 0] == 0
+                            or info_ab[k, 6, 6] == 0):
+                        self._record_failure(new_kf, cands[ci], inits[ci])
+                        continue
+                    adj = nps.sim3_adjoint(ab_pose[k])
+                    try:
+                        diff_hesse = np.linalg.inv(
+                            np.linalg.inv(info_ab[k])
+                            + adj @ np.linalg.inv(info_ba[k]) @ adj.T)
+                    except np.linalg.LinAlgError:
+                        self._record_failure(new_kf, cands[ci], inits[ci])
+                        continue
+                    diff = nps.sim3_log(nps.sim3_mul(ab_pose[k], ba_pose[k]))
+                    cons_all[ci] = float(diff @ diff_hesse @ diff)
+                    if cons_all[ci] > th_per_stage[stage] * stricts[ci]:
+                        self._record_failure(new_kf, cands[ci], inits[ci])
+                        continue
+                    f_to_c_all[ci] = ab_pose[k]
+                    c_to_f_all[ci] = ba_pose[k]
+                    lane_of[ci] = k
+                    survivors.append(ci)
 
-            live = survivors
-            last = (ba, ab, lane_of)
-            dt = (time.perf_counter() - t_stage) * 1000.0
-            self._bump(f"sim3_stage{stage}_ms", dt)
+                live = survivors
+                last = (ba, ab, lane_of)
+            self._bump(f"sim3_stage{stage}_ms",
+                       self.timers.last_ms[f"sim3_stage{stage}"])
             self._bump(f"sim3_stage{stage}_n")
-            self.system.stats.high_water(f"sim3_stage{stage}_ms_max", dt)
             if not live:
                 return [None] * n
 
@@ -751,10 +762,10 @@ class KeyFrameGraph:
         return max_change
 
     def _optimize(self, iterations: int):
-        t0 = time.perf_counter()
         pulls = self.pose_graph.n_pulls
-        self.pose_graph.optimize(iterations)
-        self._bump("pgo_ms", (time.perf_counter() - t0) * 1000.0)
+        with self.timers.time("pgo"):
+            self.pose_graph.optimize(iterations)
+        self._bump("pgo_ms", self.timers.last_ms["pgo"])
         self._bump("pgo_calls")
         self._bump("backend_pulls", self.pose_graph.n_pulls - pulls)
 

@@ -45,6 +45,7 @@ from lsd_slam_tpu_torch.lie import np_sim3 as nps
 from lsd_slam_tpu_torch.mapping.sparse_pgo import (apply_update, edge_blocks,
                                                    optimize_sparse)
 from lsd_slam_tpu_torch.ops.scatter import ordered_index_add
+from lsd_slam_tpu_torch.utils.stats import NULL_TIMERS
 
 
 def assemble_blocks(AtWA, AtWr, efrom, eto, n_vertices: int):
@@ -107,6 +108,8 @@ class PoseGraph:
         self.chi2_initial = None
         self.chi2_final = None
         self.n_pulls = 0                        # device -> host pulls
+        # the engine's StageTimers (KeyFrameGraph sets it): pulls are spans
+        self.timers = NULL_TIMERS
         self.cg_iters: List[int] = []           # per GN iteration (sparse)
 
     # ------------------------------------------------------------ build
@@ -253,7 +256,8 @@ class PoseGraph:
             Hd, g, chi2 = _assemble(poses_d, efrom, eto, meas_inv, info,
                                     deltas, n)
             packed = torch.cat([Hd.reshape(-1), g, chi2.sum()[None]])
-            host = packed.cpu().numpy().astype(np.float64)  # one pull
+            with self.timers.span("pull.pgo"):
+                host = packed.cpu().numpy().astype(np.float64)  # one pull
             self.n_pulls += 1
             H = host[:nn * nn].reshape(nn, nn)
             gv = host[nn * nn:nn * nn + nn]
@@ -294,4 +298,6 @@ class PoseGraph:
                 break
 
         self.n_pulls += 1
-        return self._take_poses(poses_to_host(poses_d))
+        with self.timers.span("pull.pgo"):
+            poses = poses_to_host(poses_d)
+        return self._take_poses(poses)

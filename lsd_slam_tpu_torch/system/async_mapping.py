@@ -209,12 +209,10 @@ class ConstraintThread(_Worker):
         kf = retrack.pop(idx)
         retrack.append(kf)
         sys_.stats.bump("retrack_attempts")
-        t0 = time.perf_counter()
-        found = graph.find_constraints_for_new_keyframe(
-            kf, force_parent=False, use_fabmap=False,
-            close_candidates_th=2.0)
-        sys_.stats.high_water("retrack_ms_max",
-                              (time.perf_counter() - t0) * 1000.0)
+        with sys_.timers.time("retrack"):
+            found = graph.find_constraints_for_new_keyframe(
+                kf, force_parent=False, use_fabmap=False,
+                close_candidates_th=2.0)
         if found == 0:
             self._failed_to_retrack += 1
         else:
@@ -243,13 +241,12 @@ class ConstraintThread(_Worker):
             try:
                 graph = self.backend._ensure()
                 sys_ = self.backend.system
-                t0 = time.perf_counter()
-                n = graph.find_constraints_for_new_keyframe(
-                    kf, force_parent=True)
-                dt = (time.perf_counter() - t0) * 1000.0
-                sys_.stats.bump("constraint_search_ms", dt)
+                with sys_.timers.time("constraint_search"):
+                    n = graph.find_constraints_for_new_keyframe(
+                        kf, force_parent=True)
+                sys_.stats.bump("constraint_search_ms",
+                                sys_.timers.last_ms["constraint_search"])
                 sys_.stats.bump("constraint_searches")
-                sys_.stats.high_water("constraint_search_ms_max", dt)
                 self._failed_to_retrack = 0
                 if n > 0:
                     self.backend.signal_new_constraints()

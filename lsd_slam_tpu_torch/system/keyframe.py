@@ -24,6 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from lsd_slam_tpu_torch.utils.stats import NULL_TIMERS
+
 
 class Keyframe:
     def __init__(self, frame_id: int, timestamp: float, pyr,
@@ -195,9 +197,11 @@ class KeyframeMemory:
     FrameMemory.cpp:129-166): keyframes beyond the active budget get
     minimized; access through the Keyframe properties restores them."""
 
-    def __init__(self, max_active: int = 30):
+    def __init__(self, max_active: int = 30, timers=None):
         self.max_active = max_active
         self._counter = 0
+        # the engine's StageTimers: a minimization's pulls are spans
+        self.timers = timers if timers is not None else NULL_TIMERS
 
     def touch(self, kf: Keyframe):
         self._counter += 1
@@ -211,6 +215,7 @@ class KeyframeMemory:
         active.sort(key=lambda kf: kf.last_use_counter)
         n = 0
         for kf in active[:len(active) - self.max_active]:
-            kf.minimize()
+            with self.timers.span("pull.minimize"):
+                kf.minimize()
             n += 1
         return n

@@ -68,10 +68,12 @@ class _InFlight:
     (None at lag 0)."""
 
     __slots__ = ("frame_id", "timestamp", "pyr", "res", "export", "pack",
-                 "copied", "snapshot", "kf", "create_flag", "ref_out")
+                 "copied", "snapshot", "kf", "create_flag", "ref_out",
+                 "counts")
 
     def __init__(self, frame_id, timestamp, pyr, res, export, pack,
-                 snapshot, kf, create_flag, ref_out=None, copied=None):
+                 snapshot, kf, create_flag, ref_out=None, copied=None,
+                 counts=0):
         self.frame_id = frame_id
         self.timestamp = timestamp
         self.pyr = pyr
@@ -83,6 +85,9 @@ class _InFlight:
         self.kf = kf
         self.create_flag = create_flag
         self.ref_out = ref_out
+        # entries at the pack's end past its layout: the rooflines' counts
+        # (`frame_step` with tracing on), else 0
+        self.counts = counts
 
 
 class TrackedFrame:
@@ -112,18 +117,20 @@ def frame_step(tracker: SE3Tracker, cam: Camera, cfg: LSDConfig, state, ref,
     slam_system.py:94-157): pyramid build, pyramidal SE3 track, observe
     sweep (+ fill holes / regularize / export) and the host pack
     [track host_pack (23) | observe stats (OBSERVE_STAT_KEYS) | mean
-    idepth, point count]. With `build_ref` (pipelined mode) it also
-    rebuilds the keyframe's tracking reference from the just-updated depth,
-    which the next in-flight frame tracks against; at lag 0 the retire
-    rebuilds it (Keyframe.set_depth).
+    idepth, point count]. While `timers` trace, the pack ends with the
+    LM kernel's roofline counts (`lm_counts`). With `build_ref` (pipelined
+    mode) it also rebuilds the keyframe's tracking reference from the
+    just-updated depth, which the next in-flight frame tracks against; at
+    lag 0 the retire rebuilds it (Keyframe.set_depth).
 
     Returns (pyr, res, new_state, export, pack, new_ref or None)."""
     timers = timers if timers is not None else StageTimers()
+    trials = [] if timers.tracing else None
     with timers.time("pyramid"):
         pyr = build_frame(image, cfg.system.pyramid_levels,
                           cfg.mapping.min_use_grad)
     with timers.time("track"):
-        res = tracker.track(ref, pyr, init7)
+        res = tracker.track(ref, pyr, init7, trials)
     with timers.time("observe"):
         state2, stats, export = observe_program(
             state, kf_pyr.images[0], kf_pyr.gx[0], kf_pyr.gy[0],
@@ -137,12 +144,26 @@ def frame_step(tracker: SE3Tracker, cam: Camera, cfg: LSDConfig, state, ref,
                 kf_pyr, build_depth_pyramid(export[0], export[1],
                                             cfg.system.pyramid_levels),
                 min_level=cfg.tracker.min_level, with_sim3=False)
-    pack = torch.cat(
-        [res.host_pack,
-         torch.stack([stats[k].to(torch.float32) for k in OBSERVE_STAT_KEYS]
-                     + [export[2].to(torch.float32),
-                        export[3].to(torch.float32)])])
+    scalars = ([stats[k].to(torch.float32) for k in OBSERVE_STAT_KEYS]
+               + [export[2].to(torch.float32), export[3].to(torch.float32)])
+    if trials is not None:
+        scalars += lm_counts(cfg, ref, trials)
+    pack = torch.cat([res.host_pack, torch.stack(scalars)])
     return pyr, res, state2, export, pack, new_ref
+
+
+def lm_levels(cfg: LSDConfig) -> tuple:
+    """The SE(3) track's pyramid levels, in the order it runs them."""
+    return tuple(range(cfg.tracker.max_level, cfg.tracker.min_level - 1, -1))
+
+
+def lm_counts(cfg: LSDConfig, ref, trials) -> list:
+    """The counts the `lm_level` roofline reads, as f32 device scalars
+    that cost no launch of their own: each level's valid points
+    (`lm_levels` order), then its int32 LM trials viewed as f32 bits
+    (`_add_lm_counts` views them back)."""
+    return ([ref.pts[k].n_valid for k in lm_levels(cfg)]
+            + [t.view(torch.float32) for t in trials])
 
 
 class SlamSystem:
@@ -187,8 +208,9 @@ class SlamSystem:
         self.stats = RunningStats()
         self.timers = StageTimers(
             sync=device_sync if cfg.system.profile_sync else None)
+        self.map.timers = self.timers
         self.frame_memory = KeyframeMemory(
-            cfg.keyframe.max_loop_closure_candidates + 20)
+            cfg.keyframe.max_loop_closure_candidates + 20, self.timers)
         # Output3DWrapper the engine publishes keyframes/graph updates to
         self.output = None
         if enable_slam:
@@ -302,10 +324,11 @@ class SlamSystem:
         self.id_to_keyframe[kf.id] = kf
 
     def _export_depth_to(self, kf: Keyframe):
-        idepth0, ivar0, mean_id, num = self.map.export_depth()
-        self.stats.bump("export_syncs")
-        kf.set_depth(idepth0, ivar0, mean_id, num,
-                     self.cfg.system.pyramid_levels)
+        with self.timers.span("export_depth"):
+            idepth0, ivar0, mean_id, num = self.map.export_depth()
+            self.stats.bump("export_syncs")
+            kf.set_depth(idepth0, ivar0, mean_id, num,
+                         self.cfg.system.pyramid_levels)
 
     # ------------------------------------------------------------- tracking
 
@@ -316,7 +339,19 @@ class SlamSystem:
         puts the frame in the ring; with pipeline_lag 0 it retires at once
         (one pack pull), else lag frames behind. A switch frame, or any
         frame in threaded mode, tracks only; the switch then maps inline,
-        the threaded mode pushes the frame to the mapping thread."""
+        the threaded mode pushes the frame to the mapping thread.
+
+        Span tracing (utils/stats.StageTimers) follows torch.profiler's
+        state on this thread, read here, so that a profiled run gets the
+        program's spans on the trace's clock; each call is then one root
+        span `track_frame` carrying `frame_id`."""
+        on = torch.autograd._profiler_enabled()
+        if on != self.timers.tracing:
+            self.timers.set_tracing(on)
+        with self.timers.frame(frame_id):
+            return self._track_frame(image, frame_id, timestamp)
+
+    def _track_frame(self, image, frame_id: int, timestamp: float):
         self.raise_worker_error()
         if not self.tracking_is_good:
             pyr = self._build_frame(image)
@@ -352,8 +387,9 @@ class SlamSystem:
         init_f2r = nps.se3_from_sim3(
             nps.sim3_mul(nps.sim3_inverse(kf.pose.cam_to_world()),
                          last_node.cam_to_world()))
-        pyr = self._build_frame(image)
-        with self.timers.time("track"):
+        with self.timers.span("switch_pyramid"):
+            pyr = self._build_frame(image)
+        with self.timers.time("switch_track"):
             res = self.tracker.track(
                 kf.tracking_ref, pyr,
                 torch.as_tensor(np.asarray(init_f2r, np.float32),
@@ -384,6 +420,10 @@ class SlamSystem:
             self._pack_bufs.append(torch.empty(pack.shape, dtype=pack.dtype,
                                                pin_memory=True))
         buf = self._pack_bufs[self._next_slot]
+        if buf.shape != pack.shape:
+            # tracing turned on or off: the pack's length changed
+            buf = self._pack_bufs[self._next_slot] = torch.empty(
+                pack.shape, dtype=pack.dtype, pin_memory=True)
         self._next_slot = (self._next_slot + 1) % (self._lag + 1)
         buf.copy_(pack, non_blocking=True)
         copied = torch.cuda.Event()
@@ -430,23 +470,33 @@ class SlamSystem:
         self.map.state = new_state
         self.map._fresh_export = None
         self.map.num_mapped_on_this += 1
+        counts = (pack.shape[0] - res.host_pack.shape[0]
+                  - len(OBSERVE_STAT_KEYS) - 2)
         pack, copied = self._copy_pack(pack)
         return _InFlight(frame_id, timestamp, pyr, res, export_dev, pack,
-                         snap, kf, False, ref_out, copied)
+                         snap, kf, False, ref_out, copied, counts)
 
     def _retire_frame(self, fl: _InFlight):
         """Pull one frame's packed scalars and run every host decision:
         loss handling, pose bookkeeping, keyframe selection, observe
         commit. Returns the frame's PoseNode, or None when lost."""
+        with self.timers.span("retire"):
+            return self._retire(fl)
+
+    def _retire(self, fl: _InFlight):
         kf = fl.kf
         speculative = fl.snapshot is not None
         if not speculative:
             self.stats.bump("lm_syncs", fl.res.n_syncs)
-        with self.timers.time("retire_pull"):
+        with self.timers.time("pull.pack"):
             if fl.copied is not None:
                 fl.copied.synchronize()   # the slot's copy has landed
-            host = fl.pack.cpu().numpy().astype(np.float64)  # THE pull
+            raw = fl.pack.cpu().numpy()  # THE pull
         self.stats.bump("host_syncs")
+        if fl.counts:
+            self._add_lm_counts(raw[-fl.counts:])
+            raw = raw[:-fl.counts]
+        host = raw.astype(np.float64)
         diverged = bool(host[HP["diverged"]])
         tracking_good = bool(host[HP["tracking_good"]])
         point_usage = float(host[HP["point_usage"]])
@@ -529,6 +579,20 @@ class SlamSystem:
                          int(host[-1]), self.cfg.system.pyramid_levels,
                          defer=self._lag > 0)
         return node
+
+    def _add_lm_counts(self, counts):
+        """Sum a frame's `lm_counts` into the counters `lm_points_l<k>`
+        (valid points) and `lm_point_passes_l<k>` (points x passes: the
+        first pass and one a trial)."""
+        levels = lm_levels(self.cfg)
+        n = len(levels)
+        pts = counts[:n].astype(np.float64)
+        trials = counts[n:].view(np.int32).astype(np.float64)
+        out = {}
+        for k, p, t in zip(levels, pts, trials):
+            out[f"points_l{k}"] = p
+            out[f"point_passes_l{k}"] = p * (t + 1.0)
+        self.stats.add("lm", out)
 
     def _drain_ring(self):
         """Retire every in-flight frame (pipeline barrier)."""
@@ -614,7 +678,9 @@ class SlamSystem:
                 [t.good_mask for t in frames],
                 [t.initial_tracked_residual for t in frames])
         svals = torch.stack([obs_stats[k].to(torch.float32)
-                             for k in OBSERVE_STAT_KEYS]).cpu().numpy()
+                             for k in OBSERVE_STAT_KEYS])
+        with self.timers.span("pull.map"):
+            svals = svals.cpu().numpy()
         self.stats.bump("map_pulls")
         self.stats.add("observe", dict(zip(OBSERVE_STAT_KEYS, svals)))
         self.stats.bump("mapping_iterations")
@@ -636,7 +702,8 @@ class SlamSystem:
         if self.backend is not None:
             # == setPermaRef on every finish (SlamSystem.cpp:404-405), so a
             # re-finished (re-activated) keyframe refreshes its permaRef
-            self.backend.refresh_permaref(kf)
+            with self.timers.span("permaref"):
+                self.backend.refresh_permaref(kf)
         if kf.idx_in_keyframes < 0:
             kf.idx_in_keyframes = len(self.keyframes)
             self.keyframes.append(kf)
@@ -662,8 +729,9 @@ class SlamSystem:
             tracked = self.latest_tracked
         candidate = None
         if self.cfg.keyframe.do_kf_reactivation and self.backend is not None:
-            candidate = self.backend.find_reposition_candidate(
-                tracked, max_score)
+            with self.timers.span("reposition_search"):
+                candidate = self.backend.find_reposition_candidate(
+                    tracked, max_score)
         if candidate is not None:
             self.load_existing_keyframe(candidate)
         elif force:
@@ -683,10 +751,12 @@ class SlamSystem:
         old_to_new = nps.se3_inverse(frame_to_kf)
         have_mask = tracked.parent_kf_id == old_kf.id
         self.stats.bump("keyframes_created")
-        rescale = self.map.create_keyframe(
-            torch.as_tensor(old_to_new.astype(np.float32),
-                            device=self.device),
-            old_kf.pyr.images[0], tracked.pyr, tracked.good_mask, have_mask)
+        with self.timers.span("create_keyframe"):
+            rescale = self.map.create_keyframe(
+                torch.as_tensor(old_to_new.astype(np.float32),
+                                device=self.device),
+                old_kf.pyr.images[0], tracked.pyr, tracked.good_mask,
+                have_mask)
         self.stats.bump("switch_syncs")
 
         new_kf = self._new_keyframe(tracked.id, tracked.timestamp,
@@ -757,7 +827,8 @@ class SlamSystem:
             torch.as_tensor(np.asarray(frame_to_kf_init, np.float32),
                             device=self.device))
         self.stats.bump("lm_syncs", res.n_syncs)
-        host = res.host_pack.cpu().numpy().astype(np.float64)
+        with self.timers.span("pull.pack"):
+            host = res.host_pack.cpu().numpy().astype(np.float64)
         self.stats.bump("host_syncs")
         good = float(host[HP["good_count"]])
         bad = float(host[HP["bad_count"]])
@@ -814,6 +885,7 @@ class SlamSystem:
                     self.backend.finalize()
         finally:
             self._stop_workers()
+            self.timers.set_tracing(False)
         self.raise_worker_error()
         if self.multihost is not None:
             # releases the worker ranks; after a failure they are left to

@@ -158,10 +158,14 @@ class QuickTracker:
                                       ref_to_frame)
 
     def check_overlap_pts(self, pts, frame_quad, ref_to_frame) -> float:
+        return float(self.overlap_pts(pts, frame_quad, ref_to_frame))
+
+    def overlap_pts(self, pts, frame_quad, ref_to_frame) -> torch.Tensor:
+        """`check_overlap_pts` left on the device (an f32 scalar)."""
         pose = torch.as_tensor(ref_to_frame, dtype=torch.float32,
                                device=frame_quad.device)
-        return float(_overlap_impl(self.cam, self.cfg, self.level, pts,
-                                   frame_quad, pose))
+        return _overlap_impl(self.cam, self.cfg, self.level, pts, frame_quad,
+                             pose)
 
     def track_batch_pts(self, refs_stacked, frame_quad, init_poses
                         ) -> QuickTrackResult:

@@ -31,6 +31,7 @@ instead of poisoning a sum. The port writes those products as
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -203,17 +204,20 @@ def _track_level(pose, aff_a, aff_b, pts, frame_quad, cam, cfg: TrackerConfig,
                  max_its: int, sigma2: float, use_affine: bool):
     """Full LM minimization on one pyramid level (`lm.level`: the kernel on
     the card, the plain loop on the CPU). Returns (pose, aff_a, aff_b,
-    last_err, diverged (device bool), host syncs)."""
+    last_err, diverged (device bool), host syncs, trials (device int32))."""
     out = lm.level(pose, aff_a, aff_b, pts, frame_quad, cam, cfg, sigma2,
                    lm.se3_schedule(cfg, max_its, use_affine))
     return (out.pose, out.aff_a, out.aff_b, out.last_err, out.diverged,
-            out.n_syncs)
+            out.n_syncs, out.trials)
 
 
 def track(cam: Camera, cfg: TrackerConfig, sigma2: float, use_affine: bool,
           ref: TrackingRef, frame: FramePyramid,
-          init_frame_to_ref: torch.Tensor) -> TrackResult:
-    """The whole pyramidal track (== _track_impl of the JAX package)."""
+          init_frame_to_ref: torch.Tensor,
+          level_trials: Optional[list] = None) -> TrackResult:
+    """The whole pyramidal track (== _track_impl of the JAX package). A
+    list given as `level_trials` receives each level's LM trials (device
+    int32), from max_level down."""
     dev = init_frame_to_ref.device
     pose = lie.se3_inverse(init_frame_to_ref)  # referenceToFrame
     aff_a = torch.ones((), dtype=torch.float32, device=dev)
@@ -223,11 +227,13 @@ def track(cam: Camera, cfg: TrackerConfig, sigma2: float, use_affine: bool,
 
     for lvl in range(cfg.max_level, cfg.min_level - 1, -1):
         caml = cam.level(lvl)
-        pose, aff_a, aff_b, _, div_l, n = _track_level(
+        pose, aff_a, aff_b, _, div_l, n, trials = _track_level(
             pose, aff_a, aff_b, ref.pts[lvl], frame.quad[lvl], caml, cfg,
             cfg.max_iterations[lvl], sigma2, use_affine)
         diverged = diverged | div_l
         syncs += n
+        if level_trials is not None:
+            level_trials.append(trials)
 
     # final stats & good-pixel mask at the min level (trackingWasGood +
     # refPixelWasGood, SE3Tracker.cpp:475-484)
@@ -294,7 +300,8 @@ class SE3Tracker:
         self.use_affine = bool(use_affine)
 
     def track(self, ref: TrackingRef, frame: FramePyramid,
-              init_frame_to_ref: torch.Tensor) -> TrackResult:
+              init_frame_to_ref: torch.Tensor,
+              level_trials: Optional[list] = None) -> TrackResult:
         """Track `frame` against `ref`; returns poses both ways."""
         return track(self.cam, self.cfg, self.sigma2, self.use_affine, ref,
-                     frame, init_frame_to_ref)
+                     frame, init_frame_to_ref, level_trials)

@@ -361,6 +361,29 @@ def test_host_build_has_the_plain_versions_bits(scene, host_libs, case,
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
+def test_host_build_counts_each_searched_slot_as_processed(
+        scene, host_libs, case, monkeypatch):
+    """The fusion's `processed` count is the sweep's searched slots (the
+    set entries of valid_k): the EPL search's roofline reads the
+    engine's `observe_processed` counter as the points searched."""
+    s = scene
+    dcfg, mcfg, cam = s["cfg"].depth, s["cfg"].mapping, s["cam"]
+    c, state, terms, setup_args = _case_inputs(scene, case)
+    on_host = _use(monkeypatch, host_libs[SOURCE_GROUP])
+    sk = on_host.epl_prepare(*setup_args)
+    flat_idx, valid_k = tobs.compact_active(
+        sk.process, tobs.frame_shift(c["ids"][-1], H * W), B)
+    gk = on_host.epl_stereo(sk, flat_idx, valid_k, c["kf_img"], c["kf_gx"],
+                            c["kf_gy"], c["ref_stack"], terms, cam, dcfg,
+                            mcfg)
+    _, stk = on_host.observe_fuse(state, sk, gk, c["kf_max_grad"], c["ids"],
+                                  3.0, dcfg)
+    assert int(valid_k.sum()) > 1000
+    assert int(stk["processed"]) == int(valid_k.sum())
+    assert int((gk.code != tobs.SKIP).sum()) == int(valid_k.sum())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("group", [g for g in GROUPS if g != SOURCE_GROUP])
 def test_host_build_every_group_size(scene, host_libs, group, case,
                                      monkeypatch):
