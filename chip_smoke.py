@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases (13, 17, 14 and 16 run right after 3, 19 and 20 after 4, 15
+Phases (21, 13, 17, 14 and 16 run right after 3, 19 and 20 after 4, 15
 after 10, 18 inside 12); any failure
 raises, so the script exits non-zero and prints no ok line:
   1. device  — the card's name and power limit (nvidia-smi);
@@ -278,6 +278,19 @@ raises, so the script exits non-zero and prints no ok line:
                [multihost], [warmup]) launches the three kernels, once a
                sweep each, and calls no plain version of the sweep
                (OBSERVE_PLAIN).
+ 21. fill-holes — the hole fill's kernel (csrc/fill_holes.cu, entry
+               `lsd_fill_holes`: a launch over bands of 16 rows, then one
+               over 32x32 tiles) against its plain version
+               (`fill_holes_plain`, ~400 torch operations) on the card at
+               640x480, 752x480 and 160x128: all six planes bit for bit;
+               CUDA-event ms of both beside the bound (FILL_BYTES_PER_PX),
+               host us per call, and torch.profiler's count of the kernel
+               launches and device operations inside one call of each, with
+               the kernel's device us by pass. [vo] counts its launches: one
+               an observe sweep, one or two a keyframe switch, at most one
+               at finalize (`check_fill_launches`); `counted_plain` counts
+               `fill_holes_plain` with the other plain versions, so no card
+               path calls it.
 A worker thread's failure is re-raised by the engine (WorkerError), so it
 fails the run.
 Then a `{"kernels": [...]}` line, the card line, and the ok line last.
@@ -344,6 +357,11 @@ turns.
 runs only the build and --lm-turns' sequences with the observe sweep on
 its kernels and on its plain torch route, in turns (kernel, plain, plain,
 kernel): fps, frame ms, the track and observe stages, switch frames.
+
+    python3 chip_smoke.py --fill-only
+
+runs only the build, [fill-holes] and [vo]'s run with the hole fill's
+launches counted and no plain version called: one short call.
 
     python3 chip_smoke.py --threads-repeat N
 
@@ -598,7 +616,8 @@ def assert_epl_on_path(tag, counts, sweeps=None):
 
 @contextlib.contextmanager
 def counted_plain(stencil):
-    """Count the calls of the stencil's plain versions, of the LM
+    """Count the calls of the stencil's and the hole fill's plain
+    versions, of the LM
     loops' (`tracking.lm.level_plain`, the Sim(3) tracker's `level_plain`
     and `final_pass_plain`) and of the observe sweep's (OBSERVE_PLAIN)
     while inside; yields [all of them, the LM loops']."""
@@ -608,7 +627,8 @@ def counted_plain(stencil):
 
     calls = [0, 0]
     plains = {(stencil, name): getattr(stencil, name) for name in (
-        "regularize_plain", "regularize_accumulators_plain")}
+        "regularize_plain", "regularize_accumulators_plain",
+        "fill_holes_plain")}
     plains[(lm, "level_plain")] = lm.level_plain
     for name in ("level_plain", "final_pass_plain"):
         plains[(sim3, name)] = getattr(sim3, name)
@@ -5218,6 +5238,143 @@ def bound(bytes_per_px, flops_per_px, h=480, w=640):
                                  else "operations")
 
 
+# the hole fill's shapes on the main path: TUM fr3 VGA and EuRoC cam0
+FILL_SHAPES = ((480, 640), (480, 752))
+# fill_holes' bound: 29 B a pixel read (valid 1; validity, idepth, var,
+# blacklisted, max_grad, idepth_smoothed, var_smoothed 4 each), 21 B
+# written (valid 1, five f32 planes); ~195 f32 operations a pixel
+FILL_BYTES_PER_PX, FILL_OPS_PER_PX = 29 + 21, 195
+
+
+def fill_args(torch, rng, h, w):
+    """The planes and thresholds `stencil.fill_holes` takes, on the card:
+    random_state with validities of a real state's scale (val5 spreads
+    across the create and unblacklist thresholds) and a gradient plane."""
+    from lsd_slam_tpu_torch.config import LSDConfig
+    dcfg, mcfg = LSDConfig().depth, LSDConfig().mapping
+    idepth, var, valid, _, id_sm, var_sm, bl = random_state(torch, rng, h, w)
+    validity = torch.as_tensor(
+        rng.uniform(0.0, 8.0, (h, w)).astype(np.float32), device="cuda")
+    grad = torch.as_tensor(
+        rng.uniform(0.0, 20.0, (h, w)).astype(np.float32), device="cuda")
+    return (valid, idepth, var, validity, bl, grad, id_sm, var_sm,
+            mcfg.min_use_grad, dcfg.min_blacklist,
+            dcfg.val_sum_min_for_create, dcfg.val_sum_min_for_unblacklist,
+            dcfg.var_random_init_initial)
+
+
+def launches_in_one_call(torch, fn):
+    """(kernel launches the host made, device operations the card ran, the
+    device us of each operation by name) in one call of `fn`, from
+    torch.profiler; Nones where the profiler sees no device activity
+    (informational, as kernel_breakdown)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - informational count
+        log(f"[fill-holes] profiler unavailable: {exc!r}")
+        return None, None, None
+    events = prof.events()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    launches = sum(e.device_type == DeviceType.CPU
+                   and e.name.startswith(("cudaLaunch", "cuLaunch"))
+                   for e in events)
+    if not on_card:
+        log("[fill-holes] torch.profiler saw no device activity")
+        return None, None, None
+    us = {}
+    for e in on_card:
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        us[name] = us.get(name, 0.0) + e.device_time_total
+    return launches, len(on_card), us
+
+
+def fill_holes_phase(torch, stencil):
+    """The hole fill's kernel (csrc/fill_holes.cu) against its plain
+    version on the card, bit for bit on all six planes, at the main path's
+    shapes and at 128x160; CUDA-event ms of both beside the bound, host us
+    per call, and one profiler count of the launches inside a single call
+    of each. Returns the kernel's row fields by shape."""
+    rng = np.random.default_rng(18)
+    rows = {}
+    for h, w in FILL_SHAPES + ((128, 160),):
+        args = fill_args(torch, rng, h, w)
+        before = stencil.FILL_HOLES_LAUNCHES
+        got = stencil.fill_holes(*args)
+        want = stencil.fill_holes_plain(*args)
+        torch.cuda.synchronize()
+        assert stencil.FILL_HOLES_LAUNCHES == before + 1
+        for name, a, b in zip(("valid", "idepth", "var", "validity",
+                               "idepth_smoothed", "var_smoothed"), got, want):
+            if a.dtype != b.dtype or not _bits_equal(torch, a, b):
+                raise AssertionError(f"fill_holes {h}x{w} {name}: the "
+                                     "kernel's bits differ from the plain "
+                                     "version's")
+        created = int((got[0] & ~args[0]).sum())
+        log(f"[fill-holes] {h}x{w}: kernel == plain bit for bit on all six "
+            f"planes ({created} holes filled)")
+        if (h, w) not in FILL_SHAPES:
+            continue
+        t = dict(ms=time_gpu(torch, lambda: stencil.fill_holes(*args), 50,
+                             60),
+                 plain_ms=time_gpu(torch, lambda: stencil.fill_holes_plain(
+                     *args), 2, 10),
+                 host_us_per_call=host_us_per_call(
+                     torch, lambda: stencil.fill_holes(*args)),
+                 plain_host_us_per_call=host_us_per_call(
+                     torch, lambda: stencil.fill_holes_plain(*args),
+                     calls=5, repeats=5))
+        t["bound_ms"], t["bound_by"] = bound(FILL_BYTES_PER_PX,
+                                             FILL_OPS_PER_PX, h, w)
+        t["roofline_pct"] = 100.0 * t["bound_ms"] / t["ms"]
+        (t["launches_per_call"], t["device_ops_per_call"],
+         t["kernel_us"]) = launches_in_one_call(
+             torch, lambda: stencil.fill_holes(*args))
+        (t["plain_launches_per_call"], t["plain_device_ops_per_call"],
+         _) = launches_in_one_call(torch,
+                                   lambda: stencil.fill_holes_plain(*args))
+        log(f"[fill-holes] {h}x{w}: {json.dumps(t)}")
+        if t["launches_per_call"] is not None:
+            assert t["launches_per_call"] <= 3, t
+        rows[f"{h}x{w}"] = t
+    return rows
+
+
+def check_fill_launches(tag, fills, sweeps, created):
+    """A card path's hole fills went through the kernel: one an observe
+    sweep, one or two a keyframe switch (the old keyframe's finalize, the
+    new one's creation), at most one more at the run's finalize."""
+    log(f"[{tag}] fill_holes launches {fills} over {sweeps} observe sweeps "
+        f"and {created} keyframe switches")
+    assert sweeps + created <= fills <= sweeps + 2 * created + 1, (
+        tag, fills, sweeps, created)
+
+
+def vo_fill_launches(torch, stencil, ref):
+    """[vo]'s run with the hole fill's launches counted and no plain
+    version called (`--fill-only`)."""
+    from lsd_slam_tpu_torch.ops import epl_stereo
+
+    with counted_plain(stencil) as plain_calls:
+        stencil.FILL_HOLES_LAUNCHES = 0
+        epl_stereo.reset_counts()
+        sys_ = run_vo(torch, ref, profile=False)[0]
+        fills = stencil.FILL_HOLES_LAUNCHES
+        sweeps = epl_stereo.counts()["epl_prepare"]
+    created = int(sys_.stats.snapshot().get("keyframes_created", 0))
+    assert plain_calls[0] == 0, plain_calls
+    assert sweeps == ref["n_frames"] - 1 - created, (sweeps, created)
+    check_fill_launches("vo", fills, sweeps, created)
+    return fills
+
+
 def pipeline_turns(torch, card):
     """The lag-3 bench sequence at lag 0 and lag 3 in turns (0, 3, 3, 0):
     frames per second over frames 1..N-1 (ring drained), the frame step's
@@ -5379,6 +5536,9 @@ def main() -> int:
     ap.add_argument("--epl-only", action="store_true",
                     help="only [vo] (its last observe sweep recorded) and "
                     "[epl] (one short call)")
+    ap.add_argument("--fill-only", action="store_true",
+                    help="only [fill-holes] and [vo]'s hole-fill launches "
+                    "(one short call)")
     ap.add_argument("--threads-repeat", type=int, metavar="N",
                     help="only [slam-threads] and [slam-production], N "
                     "times each, each held to its bars")
@@ -5521,6 +5681,13 @@ def main() -> int:
                                sweeps=ref["n_frames"] - 1 - created)
         epl_phase(torch, card, vo_sweep)
         return 0
+    if args.fill_only:
+        fill_holes_phase(torch, stencil)
+        with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
+                               "vo_orbit_640x480.json")) as f:
+            ref = json.load(f)
+        vo_fill_launches(torch, stencil, ref)
+        return 0
     if args.threads_repeat:
         results = threads_repeat(torch, stencil, args.threads_repeat)
         return 0 if all(all(v) for v in results.values()) else 1
@@ -5549,6 +5716,7 @@ def main() -> int:
     fused_bound, fused_by = bound(38, 25 * 12 + 10)
     log(f"[kernel] 480x640 bounds: accumulators {acc_bound:.5f} ms "
         f"({acc_by}), fused {fused_bound:.5f} ms ({fused_by})")
+    fill_rows = fill_holes_phase(torch, stencil)
     seg_err, order_err, seg_t, sm_clock = scatter_phase(torch, card, walk)
 
     phase_done("build, kernels and scatter")
@@ -5577,6 +5745,7 @@ def main() -> int:
             recorded_lm_inputs() as vo_levels, \
             recorded_observe_inputs() as vo_sweep:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
+        stencil.FILL_HOLES_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
         lm_track.LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
@@ -5584,6 +5753,7 @@ def main() -> int:
         sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
         vo_epl = epl_stereo.counts()
         launches, fused_launches = stencil.LAUNCHES, stencil.FUSED_LAUNCHES
+        vo_fills = stencil.FILL_HOLES_LAUNCHES
         SEGMENT_LAUNCHES["vo"] = scatter.LAUNCHES
         ORDER_LAUNCHES["vo"] = scatter.ORDER_LAUNCHES
         LM_LAUNCHES["vo"] = lm_track.LAUNCHES
@@ -5632,6 +5802,7 @@ def main() -> int:
     assert fused_launches >= n + created, (
         f"regularize_fused launched {fused_launches} < {n + created}")
     assert launches == 0 and plain_calls[0] == 0, (launches, plain_calls)
+    check_fill_launches("vo", vo_fills, n - 1 - created, created)
     assert ate < 0.01, f"ATE {ate}"
     assert dc.max() <= TRAJ_BOUND and da.max() <= TRAJ_BOUND, (
         f"trajectory off the JAX reference: centre {dc.max()}, "
@@ -5853,6 +6024,15 @@ def main() -> int:
              stages=sim3_row["stages"], cases=sim3_row["cases"],
              path_clusters=SIM3_CLUSTERS),
         *epl_kernel_rows(epl_rows),
+        dict(name="fill_holes", route="cuda",
+             source="lsd_slam_tpu_torch/csrc/fill_holes.cu",
+             replaces="lsd_slam_tpu/depth/regularize.py:121 (the XLA-fused "
+                      "fill_holes; no Pallas counterpart)",
+             entry="lsd_fill_holes (two kernels: rows, then tiles)",
+             vo_launches=vo_fills, max_abs_err=0.0,
+             shape="640x480", **fill_rows["480x640"],
+             euroc_752x480=fill_rows["480x752"], library_ms=None,
+             library_note="no single PyTorch call fills holes"),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

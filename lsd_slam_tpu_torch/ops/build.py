@@ -30,6 +30,7 @@ SOURCES = {
     "lm_track": "lm_track.cu",
     "sim3_track": "sim3_track.cu",
     "epl_stereo": "epl_stereo.cu",
+    "fill_holes": "fill_holes.cu",
 }
 
 # -fmad=false: the kernels must round like the JAX lattice, which never

@@ -34,6 +34,8 @@ from lsd_slam_tpu_torch.interop import depth_state_from_dict
 from lsd_slam_tpu_torch.ops import regularize_stencil as stencil
 
 from _torch_parity import to_dict, np_
+from test_torch_fill_holes import PLANES as FILL_PLANES
+from test_torch_fill_holes import assert_same_bits, fill_state, plane_args
 
 NAMES = ("sum_id", "sum_ivar", "val_sum", "n_occ", "n_not_occ")
 
@@ -228,6 +230,51 @@ def test_fill_holes_matches_jax(shared_state):
                           torch.from_numpy(max_grad), LSDConfig().depth, 5.0)
     assert int(np.asarray(want.valid).sum()) > int(state["valid"].sum())
     _assert_states(want, got)
+
+
+FILL_CASES = [((48, 64), "shared"), ((37, 53), "rounded"),
+              ((128, 160), "exact"), ((128, 160), "rounded")]
+
+
+@pytest.mark.parametrize("shape,case", FILL_CASES,
+                         ids=[f"{h}x{w}-{c}" for (h, w), c in FILL_CASES])
+def test_fill_holes_wrapper_takes_plain_version_on_cpu(shared_state, shape,
+                                                       case):
+    """On CPU tensors the hole fill's wrapper is its plain version, bit for
+    bit, and launches nothing; the state-level `fill_holes` (held to JAX
+    by test_fill_holes_matches_jax) goes through it."""
+    if case == "shared":
+        _, state, _, _, max_grad, _, _ = shared_state
+        t = depth_state_from_dict(state, device="cpu")
+        max_grad = torch.from_numpy(max_grad)
+    else:
+        t, max_grad = fill_state(*shape, case, seed=shape[0])
+    args = plane_args(t, max_grad)
+    before = stencil.FILL_HOLES_LAUNCHES
+    got = stencil.fill_holes(*args)
+    want = stencil.fill_holes_plain(*args)
+    assert stencil.FILL_HOLES_LAUNCHES == before
+    assert_same_bits(got, want)
+    out = treg.fill_holes(t, max_grad, LSDConfig().depth, plane_args(
+        t, max_grad)[8])
+    assert_same_bits([getattr(out, k) for k in FILL_PLANES], want)
+    assert out.blacklisted is t.blacklisted
+    assert int((got[0] & ~t.valid).sum()) > 0
+
+
+@pytest.mark.parametrize("meta_planes", ["all", "idepth"])
+def test_fill_holes_wrapper_raises_off_cpu_and_cuda(meta_planes):
+    """Tensors on another device than the CPU or a card raise instead of
+    computing anything or launching."""
+    t, max_grad = fill_state(8, 8)
+    args = list(plane_args(t, max_grad))
+    for i, a in enumerate(args):
+        if torch.is_tensor(a) and (meta_planes == "all" or i == 1):
+            args[i] = torch.empty_like(a, device="meta")
+    before = stencil.FILL_HOLES_LAUNCHES
+    with pytest.raises(ValueError):
+        stencil.fill_holes(*args)
+    assert stencil.FILL_HOLES_LAUNCHES == before
 
 
 @pytest.mark.parametrize("have_good_mask", [True, False])
