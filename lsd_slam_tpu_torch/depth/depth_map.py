@@ -250,6 +250,9 @@ class DepthMap:
         self.timers = NULL_TIMERS
         # previous sweep's eligible-pixel count -> next sweep's budget
         self.last_active = None
+        # the last update's sweeps: (point budget, eligible count as a
+        # device scalar), one a chunk
+        self.sweeps = []
         self.num_frames_tracked_on_this = 0
         self.num_mapped_on_this = 0
 
@@ -358,12 +361,14 @@ class DepthMap:
         updateKeyframe, DepthMap.cpp:1072-1213); ref_to_kf and
         tracking_residual are host numbers. Returns the stats dict of
         device scalars (no host sync)."""
+        budget = self.pick_budget()
         self.state, stats, export = observe_program(
             self.state, kf_pyr.images[0], kf_pyr.gx[0], kf_pyr.gy[0],
             kf_pyr.max_grad[0], ref_img, self._f32(ref_to_kf), ref_id,
             good_mask, self._f32(tracking_residual), self._skip_inc(),
-            self.cam, self.cfg, point_budget=self.pick_budget())
+            self.cam, self.cfg, point_budget=budget)
         self.last_active = stats["active"]  # device scalar, read lazily
+        self.sweeps = [(budget, stats["active"])]
         self._fresh_export = export
         self.num_mapped_on_this += 1
         return stats
@@ -387,6 +392,8 @@ class DepthMap:
                                         tracking_residuals[0])
         total = None
         kmax = MULTI_REF_BUCKETS[-1]
+        budget = observe_budget_full(*self.state.idepth.shape)
+        self.sweeps = []
         for lo in range(0, n, kmax):
             chunk = slice(lo, min(lo + kmax, n))
             self.state, stats, export = observe_multi_program(
@@ -397,9 +404,9 @@ class DepthMap:
                 [float(i) for i in ref_ids[chunk]],
                 torch.stack(list(good_masks[chunk])),
                 self._f32([float(t) for t in tracking_residuals[chunk]]),
-                self._skip_inc(), self.cam, self.cfg,
-                point_budget=observe_budget_full(*self.state.idepth.shape))
+                self._skip_inc(), self.cam, self.cfg, point_budget=budget)
             self.last_active = stats["active"]
+            self.sweeps.append((budget, stats["active"]))
             self._fresh_export = export
             # one frame == one mapping unit (SlamSystem.cpp:566-581)
             self.num_mapped_on_this += chunk.stop - chunk.start

@@ -65,15 +65,15 @@ class _InFlight:
     host pack, on the card's slots a pinned host buffer that `copied`
     (a CUDA event, else None) guards; ref_out is the tracking reference
     rebuilt from this frame's depth, which the next dispatch chains on
-    (None at lag 0)."""
+    (None at lag 0); budget is the speculative observe's point budget."""
 
     __slots__ = ("frame_id", "timestamp", "pyr", "res", "export", "pack",
                  "copied", "snapshot", "kf", "create_flag", "ref_out",
-                 "counts")
+                 "counts", "budget")
 
     def __init__(self, frame_id, timestamp, pyr, res, export, pack,
                  snapshot, kf, create_flag, ref_out=None, copied=None,
-                 counts=0):
+                 counts=0, budget=0):
         self.frame_id = frame_id
         self.timestamp = timestamp
         self.pyr = pyr
@@ -88,6 +88,7 @@ class _InFlight:
         # entries at the pack's end past its layout: the rooflines' counts
         # (`frame_step` with tracing on), else 0
         self.counts = counts
+        self.budget = budget
 
 
 class TrackedFrame:
@@ -459,12 +460,13 @@ class SlamSystem:
                              last_node.cam_to_world())), np.float32),
                 device=self.device)
             ref_in = kf.tracking_ref
+        budget = self.map.pick_budget()
         with self.timers.time("frame_step"):
             pyr, res, new_state, export_dev, pack, ref_out = frame_step(
                 self.tracker, self.cam, self.cfg, self.map.state, ref_in,
                 kf.pyr, self._image(image), init7,
                 float(np.float32(frame_id)), float(np.float32(skip_inc)),
-                self.map.pick_budget(), self.timers,
+                budget, self.timers,
                 build_ref=self._lag > 0)
         self.stats.bump("lm_syncs", res.n_syncs)
         self.map.state = new_state
@@ -474,7 +476,7 @@ class SlamSystem:
                   - len(OBSERVE_STAT_KEYS) - 2)
         pack, copied = self._copy_pack(pack)
         return _InFlight(frame_id, timestamp, pyr, res, export_dev, pack,
-                         snap, kf, False, ref_out, copied, counts)
+                         snap, kf, False, ref_out, copied, counts, budget)
 
     def _retire_frame(self, fl: _InFlight):
         """Pull one frame's packed scalars and run every host decision:
@@ -570,6 +572,7 @@ class SlamSystem:
             self.stats.add("observe", dict(zip(OBSERVE_STAT_KEYS, svals)))
             self.map.last_active = float(
                 svals[OBSERVE_STAT_KEYS.index("active")])
+            self._count_budgets([fl.budget], [self.map.last_active])
             kf.num_mapped_on_this += 1
             kf.num_mapped_on_this_total += 1
             # deferred when pipelined: the chained ref already serves the
@@ -579,6 +582,15 @@ class SlamSystem:
                          int(host[-1]), self.cfg.system.pyramid_levels,
                          defer=self._lag > 0)
         return node
+
+    def _count_budgets(self, budgets, actives):
+        """Sum the observe sweeps' point budgets into `observe_slots` and
+        the eligible pixels each budget left out into
+        `observe_unsearched`, from host values already pulled."""
+        self.stats.add("observe", {
+            "slots": float(sum(budgets)),
+            "unsearched": float(sum(max(0.0, float(a) - b)
+                                    for b, a in zip(budgets, actives)))})
 
     def _add_lm_counts(self, counts):
         """Sum a frame's `lm_counts` into the counters `lm_points_l<k>`
@@ -677,12 +689,22 @@ class SlamSystem:
                 [float(t.id) for t in frames],
                 [t.good_mask for t in frames],
                 [t.initial_tracked_residual for t in frames])
+        # several chunks: each chunk's eligible count rides in the pull
+        sweeps = self.map.sweeps
+        chunks = [a for _, a in sweeps] if len(sweeps) > 1 else []
         svals = torch.stack([obs_stats[k].to(torch.float32)
-                             for k in OBSERVE_STAT_KEYS])
+                             for k in OBSERVE_STAT_KEYS]
+                            + [a.to(torch.float32) for a in chunks])
         with self.timers.span("pull.map"):
             svals = svals.cpu().numpy()
         self.stats.bump("map_pulls")
-        self.stats.add("observe", dict(zip(OBSERVE_STAT_KEYS, svals)))
+        n_stats = len(OBSERVE_STAT_KEYS)
+        self.stats.add("observe", dict(zip(OBSERVE_STAT_KEYS,
+                                           svals[:n_stats])))
+        self._count_budgets(
+            [b for b, _ in sweeps],
+            svals[n_stats:] if chunks
+            else [svals[OBSERVE_STAT_KEYS.index("active")]])
         self.stats.bump("mapping_iterations")
         self.stats.bump("mapping_frames_consumed", len(frames))
         # count frames, not sweeps: keyframe gating compares these against
