@@ -40,7 +40,15 @@ raises, so the script exits non-zero and prints no ok line:
                just after. Checks: tracking good, >= 1 keyframe switch,
                >= N + switches fused launches, no accumulators launch and
                no plain-version call, ATE < 0.01, and the trajectory within
-               TRAJ_BOUND of the JAX reference frame by frame. A second,
+               TRAJ_BOUND of the JAX reference frame by frame; every
+               track's final pass inside its last `lm_level` launch
+               (`track_final_fused` equals `frames_tracked`, and the plain
+               `final_pass_plain` is counted as a plain version). On the
+               last track (`track_final_phase`): its launches and host us
+               against `track_plain`'s, the last level's ms with and
+               without the epilogue, and the fused pass against the plain
+               one run on the CPU at the kernel's pose (good mask bit for
+               bit, counts exact). A second,
                profiled pass (stage timers synchronised) gives the per-stage
                breakdown, and a third runs under torch.profiler. The fused
                entry is also timed on the loop's final state.
@@ -618,11 +626,13 @@ def assert_epl_on_path(tag, counts, sweeps=None):
 def counted_plain(stencil):
     """Count the calls of the stencil's and the hole fill's plain
     versions, of the LM
-    loops' (`tracking.lm.level_plain`, the Sim(3) tracker's `level_plain`
-    and `final_pass_plain`) and of the observe sweep's (OBSERVE_PLAIN)
-    while inside; yields [all of them, the LM loops']."""
+    loops' (`tracking.lm.level_plain`, the SE(3) track's
+    `final_pass_plain`, the Sim(3) tracker's `level_plain` and
+    `final_pass_plain`) and of the observe sweep's (OBSERVE_PLAIN) while
+    inside; yields [all of them, the LM loops']."""
     from lsd_slam_tpu_torch.depth import observe
     from lsd_slam_tpu_torch.tracking import lm
+    from lsd_slam_tpu_torch.tracking import se3_tracker as se3
     from lsd_slam_tpu_torch.tracking import sim3_tracker as sim3
 
     calls = [0, 0]
@@ -630,6 +640,7 @@ def counted_plain(stencil):
         "regularize_plain", "regularize_accumulators_plain",
         "fill_holes_plain")}
     plains[(lm, "level_plain")] = lm.level_plain
+    plains[(se3, "final_pass_plain")] = se3.final_pass_plain
     for name in ("level_plain", "final_pass_plain"):
         plains[(sim3, name)] = getattr(sim3, name)
     for name in OBSERVE_PLAIN:
@@ -642,7 +653,7 @@ def counted_plain(stencil):
             return fn(*a, **k)
         return call
     for (mod, name), fn in plains.items():
-        setattr(mod, name, counted(fn, mod is lm or mod is sim3))
+        setattr(mod, name, counted(fn, mod in (lm, se3, sim3)))
     try:
         yield calls
     finally:
@@ -2927,11 +2938,13 @@ def epl_phase(torch, card, vo_sweeps):
 
 @contextlib.contextmanager
 def recorded_lm_inputs(keep=4):
-    """Record the arguments of the last `keep` calls of `tracking.lm.level`
-    (what the trackers call; on the card it launches `lm_level`) while
-    inside: the main path's own inputs of the kernel. The arguments are
-    kept, not copied (the port writes no tracker input in place), so the
-    recording adds no device work to the timed run. Yields the deque."""
+    """Record the arguments and keywords of the last `keep` calls of
+    `tracking.lm.level` (what the trackers call; on the card it launches
+    `lm_level`) while inside: the main path's own inputs of the kernel.
+    The arguments are kept, not copied (the port writes no tracker input
+    in place), so the recording adds no device work to the timed run.
+    Yields the deque of (args, keywords); `level_args` turns one into the
+    plain positional call [lm] replays."""
     import collections
     from lsd_slam_tpu_torch.tracking import lm
 
@@ -2939,7 +2952,7 @@ def recorded_lm_inputs(keep=4):
     real = lm.level
 
     def call(*a, **k):
-        seen.append(a)
+        seen.append((a, k))
         return real(*a, **k)
 
     lm.level = call
@@ -2947,6 +2960,119 @@ def recorded_lm_inputs(keep=4):
         yield seen
     finally:
         lm.level = real
+
+
+@contextlib.contextmanager
+def recorded_track_inputs(keep=1):
+    """Record the arguments of the last `keep` SE(3) tracks
+    (`tracking.se3_tracker.track`, which `SE3Tracker.track` calls) while
+    inside, kept, not copied. Yields the deque."""
+    import collections
+    from lsd_slam_tpu_torch.tracking import se3_tracker as se3
+
+    seen = collections.deque(maxlen=keep)
+    real = se3.track
+
+    def call(*a, **k):
+        seen.append(a[:7])
+        return real(*a, **k)
+
+    se3.track = call
+    try:
+        yield seen
+    finally:
+        se3.track = real
+
+
+def track_final_phase(torch, card, tracks, levels):
+    """[vo]'s last SE(3) track, its final pass inside the last `lm_level`
+    launch (`track_fused`), against the route before it (`track_plain`:
+    the same kernels, then `final_pass_plain` and the tail in torch ops):
+    the kernel launches and device operations of one track each way
+    (torch.profiler) and its host us; the last level's device ms with and
+    without the epilogue (CUDA events, in turns); and the fused final pass
+    against `final_pass_plain` run on the CPU at the kernel's loop pose
+    and affine pair: the good mask bit for bit, the in-image, good and bad
+    counts exactly, the error and the usage within 1e-6 relative. Returns
+    the numbers."""
+    import dataclasses
+    from lsd_slam_tpu_torch.ops import lm_track
+    from lsd_slam_tpu_torch.tracking import se3_tracker as se3
+
+    args = tracks[-1]
+    fused = launches_in_one_call(torch, lambda: se3.track(*args))
+    plain = launches_in_one_call(torch, lambda: se3.track_plain(*args))
+    host_fused = host_us_per_call(torch, lambda: se3.track(*args), calls=50)
+    host_plain = host_us_per_call(torch, lambda: se3.track_plain(*args),
+                                  calls=20)
+    (pose, aff_a, aff_b, pts, quad, cam, cfg, sigma2, sched), kw = levels[-1]
+    assert kw.get("final"), kw
+    fields = tuple(getattr(pts, f) for f in lm_track.POINT_FIELDS)
+
+    def last(final):
+        return lm_track.lm_level(
+            pose, aff_a, aff_b, fields, quad, cam, cfg, sigma2,
+            dataclasses.asdict(sched), diverged=kw.get("diverged"),
+            final_n_valid=pts.n_valid if final else None)
+    turns = time_in_turns(torch, [("with", lambda: last(True)),
+                                  ("without", lambda: last(False))], 20, 10)
+    out = last(True)
+    fin = out[7]
+    cpu_pts = dataclasses.replace(pts, **{
+        f.name: getattr(pts, f.name).cpu() for f in dataclasses.fields(pts)})
+    stats, err, grid = se3.final_pass_plain(
+        out[0].cpu(), out[1].cpu(), out[2].cpu(), cpu_pts, quad.cpu(), cam,
+        cfg, sigma2)
+    mask_equal = bool(torch.equal(fin.good_mask.cpu().reshape(-1), grid))
+    counts = fin.counts.cpu().tolist()
+    want = [int(stats["in_count"]), int(stats["good_count"]),
+            int(stats["bad_count"])]
+    pack = fin.pack.cpu().double()
+    usage = float(stats["usage"] / torch.clamp_min(cpu_pts.n_valid, 1.0))
+    err_rel = abs(float(pack[16]) - float(err)) / abs(float(err))
+    usage_rel = abs(float(pack[17]) - usage) / abs(usage)
+    row = dict(launches_fused=fused[0], device_ops_fused=fused[1],
+               launches_plain=plain[0], device_ops_plain=plain[1],
+               host_us_fused=host_fused, host_us_plain=host_plain,
+               last_level_ms_with=turns["with"],
+               last_level_ms_without=turns["without"],
+               mask_equal=mask_equal, counts=counts, counts_plain=want,
+               err_rel=err_rel, usage_rel=usage_rel,
+               points=int(pts.idx.shape[-1]), trials=int(out[5]))
+    log(f"[vo] one track: {fused[0]} kernel launches ({fused[1]} device "
+        f"ops), {host_fused:.1f} us of host; the route before it "
+        f"(track_plain) {plain[0]} launches ({plain[1]} device ops), "
+        f"{host_plain:.1f} us; the last level ({cam.width}x{cam.height}, "
+        f"{row['points']} points, {row['trials']} trials) with the "
+        f"epilogue {turns['with']:.4f} ms, without {turns['without']:.4f} "
+        f"ms (CUDA events, in turns); the final pass against the plain one "
+        f"at its pose on the CPU: good mask bit-equal {mask_equal}, counts "
+        f"{counts} / {want}, error {err_rel:.3g} and usage {usage_rel:.3g} "
+        f"relative; {card}")
+    assert mask_equal and counts == want, row
+    assert err_rel <= 1e-6 and usage_rel <= 1e-6, row
+    if fused[1] is not None:
+        assert fused[1] <= 8, row
+    return row
+
+
+def level_args(rec):
+    """A recorded `tracking.lm.level` call (args, keywords) as the plain
+    positional call of the same loop: the SE(3) track's first level gets
+    the inverse of its frame_to_ref (`invert`) and a None affine pair
+    (1, 0) as tensors; the diverged input and the final pass, which do not
+    change the loop, are left out."""
+    import torch
+    from lsd_slam_tpu_torch import lie
+
+    a, k = rec
+    pose, aff_a, aff_b = a[:3]
+    if k.get("invert"):
+        pose = lie.se3_inverse(pose)
+    if aff_a is None:
+        aff_a = torch.ones(pose.shape[:-1], device=pose.device)
+        aff_b = torch.zeros(pose.shape[:-1], device=pose.device)
+    return (pose, aff_a, aff_b) + tuple(a[3:])
 
 
 def lm_bound(args, got):
@@ -3261,6 +3387,7 @@ def lm_phase(torch, card, vo_levels, baseline=None):
                 time_gpu(torch, lambda: lm.level_plain(*args), 1, 3))
 
     assert len(vo_levels) == 4, len(vo_levels)
+    vo_levels = [level_args(rec) for rec in vo_levels]
     clock_mhz = sm_clocks_mhz()[0]
     levels, worst = [], 0.0
     for args in vo_levels:
@@ -5267,22 +5394,27 @@ def launches_in_one_call(torch, fn):
     """(kernel launches the host made, device operations the card ran, the
     device us of each operation by name) in one call of `fn`, from
     torch.profiler; Nones where the profiler sees no device activity
-    (informational, as kernel_breakdown)."""
+    (informational, as kernel_breakdown). A process's first profiler
+    recording can miss the card's activity, so one that sees none is
+    recorded once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    except Exception as exc:  # noqa: BLE001 - informational count
-        log(f"[fill-holes] profiler unavailable: {exc!r}")
-        return None, None, None
-    events = prof.events()
-    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    for _ in range(2):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 - informational count
+            log(f"[fill-holes] profiler unavailable: {exc!r}")
+            return None, None, None
+        events = prof.events()
+        on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+        if on_card:
+            break
     launches = sum(e.device_type == DeviceType.CPU
                    and e.name.startswith(("cudaLaunch", "cuLaunch"))
                    for e in events)
@@ -5400,23 +5532,25 @@ def pipeline_turns(torch, card):
 def lm_route(route: str):
     """Inside, the trackers' LM loops run as `route` says: "kernel" (the
     engine's own), "plain" (every LM loop on its plain version on the card
-    as well: `tracking.lm.level_plain` and the Sim(3) tracker's
-    `levels_plain` (`level_plain`, `final_pass_plain`), one flag pull per
-    trial, the host
+    as well: the SE(3) track's `track_plain` on `tracking.lm.level_plain`
+    and the Sim(3) tracker's `levels_plain` (`level_plain`,
+    `final_pass_plain`), one flag pull per trial, the host
     loops the port ran before the kernels) or "sim3-plain" (only the
     Sim(3) loop so: the port before this kernel); for `--lm-turns` only."""
     from lsd_slam_tpu_torch.tracking import lm
+    from lsd_slam_tpu_torch.tracking import se3_tracker as se3
     from lsd_slam_tpu_torch.tracking import sim3_tracker as st3
 
-    real = lm.level, st3.levels
+    real = lm.level, se3.track, st3.levels
     if route == "plain":
         lm.level = lm.level_plain
+        se3.track = se3.track_plain
     if route in ("plain", "sim3-plain"):
         st3.levels = st3.levels_plain
     try:
         yield
     finally:
-        lm.level, st3.levels = real
+        lm.level, se3.track, st3.levels = real
 
 
 @contextlib.contextmanager
@@ -5663,8 +5797,10 @@ def main() -> int:
         with open(os.path.join(ROOT, "lsd_slam_tpu_torch", "reference_data",
                                "vo_orbit_640x480.json")) as f:
             ref = json.load(f)
-        with recorded_lm_inputs() as vo_levels:
+        with recorded_lm_inputs() as vo_levels, \
+                recorded_track_inputs() as vo_tracks:
             run_vo(torch, ref, profile=False)
+        track_final_phase(torch, card, vo_tracks, vo_levels)
         lm_phase(torch, card, vo_levels, lm_base)
         sim3_phase(torch, card, sim3_base)
         return 0
@@ -5743,11 +5879,12 @@ def main() -> int:
         ref = json.load(f)
     with counted_plain(stencil) as plain_calls, \
             recorded_lm_inputs() as vo_levels, \
+            recorded_track_inputs() as vo_tracks, \
             recorded_observe_inputs() as vo_sweep:
         stencil.LAUNCHES = stencil.FUSED_LAUNCHES = 0
         stencil.FILL_HOLES_LAUNCHES = 0
         scatter.LAUNCHES = scatter.ORDER_LAUNCHES = 0
-        lm_track.LAUNCHES = 0
+        lm_track.LAUNCHES = lm_track.FINAL_LAUNCHES = 0
         lm_track.CLUSTER_SIZES.clear()
         epl_stereo.reset_counts()
         sys_, poses, frame_ms, total_s = run_vo(torch, ref, profile=False)
@@ -5758,6 +5895,7 @@ def main() -> int:
         ORDER_LAUNCHES["vo"] = scatter.ORDER_LAUNCHES
         LM_LAUNCHES["vo"] = lm_track.LAUNCHES
         LM_CLUSTERS["vo"] = dict(lm_track.CLUSTER_SIZES)
+        vo_finals = lm_track.FINAL_LAUNCHES
     st = sys_.stats.snapshot()
     n = ref["n_frames"]
     traj = sys_.trajectory_array()
@@ -5792,6 +5930,15 @@ def main() -> int:
         f"segment_order launches {ORDER_LAUNCHES['vo']}, "
         f"over {n - 1} tracked frames")
     assert_lm_on_path("vo", st, n - 1)
+    # every track's final pass inside its last launch, none in torch ops
+    # (plain_calls counts `final_pass_plain`)
+    log(f"[vo] final passes inside lm_level {vo_finals} over {n - 1} "
+        f"tracks (counter track_final_fused "
+        f"{st.get('track_final_fused', 0):.0f} of frames_tracked "
+        f"{st.get('frames_tracked', 0):.0f})")
+    assert vo_finals == n - 1, (vo_finals, n)
+    assert st.get("track_final_fused") == st.get("frames_tracked"), st
+    track_final_phase(torch, card, vo_tracks, vo_levels)
     # one sweep a tracked frame but the switch frames
     assert_epl_on_path("vo", vo_epl, sweeps=n - 1 - created)
     log(f"[vo] stage ms (dispatch windows): {sys_.timers.summary()}")

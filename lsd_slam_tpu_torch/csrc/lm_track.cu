@@ -83,7 +83,33 @@
 //
 // `stamps` (null on every engine path) takes the leader thread's clock64()
 // at the start, the end of its own sweep and the end of the fold of every
-// pass (3 slots a pass), and the loop's end, for the first lane.
+// pass (3 slots a pass), and the launch's end, for the first lane.
+//
+// The SE(3) track (tracking/se3_tracker.py `track`) launches this kernel
+// once a level and nothing else, so a launch also does what the track did
+// around its loops in torch ops:
+//   * `invert`: `pose_in` holds frame_to_ref, the level starts at its
+//     inverse (lie.se3_inverse, written as the plain version writes it);
+//   * null affine inputs: the pair starts at (1, 0);
+//   * `div_in` (null, or the previous level's flags): `div_out` is their
+//     OR with this level's flag, the track's `diverged`;
+//   * `fin` (the track's last level; its pointers null on every other
+//     launch): after the loop, the final pass of `track_plain`
+//     (`final_pass_plain`: `_residual_pass` and `_weights_pass` at the
+//     loop's pose and affine pair) over the points the cluster staged. Per
+//     point it adds the usage term, the good and bad flags (f64 sums of
+//     0 / 1: exact) and the error to the sum tree in place of A's first
+//     three entries, and writes the good flag into the level's (H, W)
+//     grid, which the cluster filled with 1 before its first pass (pixels
+//     outside the point set stay good; padding slots write nothing). The
+//     leader's tail then writes the track's outputs: the in-image, good
+//     and bad counts, tracking_good and the 23-entry pack in the order of
+//     se3_tracker.HOST_PACK (the pose, identity where diverged; its
+//     inverse; diverged; tracking_good; the final error; the point usage;
+//     the good and bad counts; the affine pair; the initial residual).
+// The final pass adds one pass of time at the track's last level and no
+// trial; the quick tracker's launches pass none of these and run as
+// before.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -113,6 +139,20 @@ struct LsdLmParams {
   int chunk;              // points per chunk
   int leaves;             // chunks of the sum tree, max(T, C)
   int staged;             // points a block stages in shared memory
+  int invert;             // 1: pose_in holds the inverse of the start pose
+  float max_diff_const, max_diff_grad;  // the final pass's good-point test
+  float min_gpa, min_gpgb;  // tracking_good: good / pixels, good / (g + b)
+};
+
+// The final pass's outputs, one row a lane; every pointer null on a launch
+// without it. Must match ops/lm_track.py `Final`.
+struct LsdLmFinal {
+  uint8_t* good_mask;      // (B, h * w) bool: the good-pixel grid
+  float* pack;             // (B, 23): se3_tracker.HOST_PACK's order
+  uint8_t* tracking_good;  // (B,) bool
+  long long* counts;       // (B, 3): in-image, good, bad
+  const float* n_valid;    // the point set's valid count, per lane or shared
+  long long n_valid_stride;  // elements between lanes' n_valid (0: shared)
 };
 
 namespace {
@@ -127,6 +167,11 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kErr = 27;
 constexpr int kMom = 28;
 constexpr int kSums = 33;
+// the final pass's sums, in place of A's first three entries
+constexpr int kUsage = 0;
+constexpr int kGood = 1;
+constexpr int kBad = 2;
+constexpr int kPack = 23;
 constexpr int kCols = kSums + 1;
 constexpr int kMaxCluster = 16;
 // group roots pending in the binary-counter merge: log2(groups) + 1
@@ -265,6 +310,20 @@ __device__ __forceinline__ void se3_mul(const float* a, const float* b,
     out[4 + i] = (p[i] + 2.0f * (aw * vxp[i] + vvxp[i])) + a[4 + i];
 }
 
+// lie.se3_inverse(g): the conjugate and -quat_rotate(conjugate, t)
+__device__ __forceinline__ void se3_inverse(const float* g, float* out) {
+  out[0] = g[0];
+  out[1] = -g[1];
+  out[2] = -g[2];
+  out[3] = -g[3];
+  float vxp[3], vvxp[3];
+  cross(out + 1, g + 4, vxp);
+  cross(out + 1, vxp, vvxp);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[4 + i] = -(g[4 + i] + 2.0f * (out[0] * vxp[i] + vvxp[i]));
+}
+
 // m x = x0 with partial pivoting, row r of m and x0[r] on lane r < 6; every
 // lane gets the solution in xs
 __device__ __forceinline__ void solve6_warp(float (&m)[6], float x,
@@ -333,11 +392,14 @@ struct Staged {
 // One point's terms at the pose in `rt` (rotation, translation) and the
 // affine pair: sums 0-31 into `out` (the lane's row of the warp's tile),
 // the 33rd (the moment weight) into `w_out`, the in-image flag into
-// `in_out`.
+// `in_out`. In the final pass (`kFinal`) the usage term and the good and
+// bad flags replace sums 0-2, and a valid point's good flag goes to its
+// pixel of `grid`.
+template <bool kFinal>
 __device__ __forceinline__ void point_terms(
     const Params& p, const Lane& ln, const Staged& sm, int i,
     const float (&rt)[12], float aa, float bb, float* out, float& w_out,
-    bool& in_out) {
+    bool& in_out, uint8_t* grid) {
   const int j = i - sm.first;
   const bool st = j < sm.count;
   // flat pixel indices are below 2^31 (the wrapper checks H * W)
@@ -426,6 +488,17 @@ __device__ __forceinline__ void point_terms(
     for (int b = a; b < 6; ++b) out[k++] = jw * jac[b];
     out[21 + a] = jw * r;
   }
+  if (kFinal) {
+    // _residual_pass's good test and usage term (SE3Tracker.cpp:475-484)
+    const float den = p.max_diff_const
+                      + p.max_diff_grad * (gxn * gxn + gyn * gyn);
+    const bool good = (r * r / den) < 1.0f;
+    const float uz = z_ref / (in_img ? safe_wz : 1.0f);
+    out[kUsage] = in_img ? (uz > 1.0f ? 1.0f : uz) : 0.0f;  // NaN passes
+    out[kGood] = good && in_img ? 1.0f : 0.0f;
+    out[kBad] = !good && in_img ? 1.0f : 0.0f;
+    if (vld) grid[id] = good && in_img ? 1 : 0;
+  }
 }
 
 // One pass of this block over its chunks at the pose in `bc`; the block's
@@ -435,11 +508,13 @@ __device__ __forceinline__ void point_terms(
 // columns are free of bank conflicts), then lane k adds column k (k < 32)
 // in point order into its f64 sum; the 33rd sum goes through a fixed f64
 // shuffle tree per round, the in-image count through a ballot.
-// `stamp`: the leader thread's slots.
+// `stamp`: the leader thread's slots; `kFinal` / `grid`: the final pass
+// (`point_terms`).
+template <bool kFinal>
 __device__ void block_pass(const Params& p, const Lane& ln, const Staged& sm,
                            const Bcast& bc, int rank, int C, float* tiles,
                            double (*cs)[kCols], double (*stk)[kCols],
-                           long long* stamp) {
+                           long long* stamp, uint8_t* grid) {
   if (stamp) stamp[0] = clock64();
   float rt[12];
 #pragma unroll
@@ -466,8 +541,8 @@ __device__ void block_pass(const Params& p, const Lane& ln, const Staged& sm,
         float w = 0.0f;
         bool in_img = false;
         if (lane < rows)
-          point_terms(p, ln, sm, base + lane, rt, aa, bb, tile + lane * kSums,
-                      w, in_img);
+          point_terms<kFinal>(p, ln, sm, base + lane, rt, aa, bb,
+                              tile + lane * kSums, w, in_img, grid);
         count += __popc(__ballot_sync(kFull, in_img));
         double wd = (double)w;
 #pragma unroll
@@ -672,6 +747,73 @@ __device__ void leader_tail(const Params& p, State& st, double lo, double hi,
   for (int i = 0; i < 3; ++i) next.trans[i] = np[4 + i];
 }
 
+// The leader warp, after the loop's last pass: the final pass's pose (the
+// accepted one) and affine pair into every block of the cluster (the loop
+// flag stays as the blocks read it).
+__device__ __forceinline__ void final_bcast(cg::cluster_group& cluster,
+                                            int C, const State& st,
+                                            Bcast& bc, int lane) {
+  float pose[7], rot[9];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) pose[i] = st.pose[i];
+  quat_to_matrix(pose, rot);
+  if (lane < C) {
+    Bcast* dst = cluster.map_shared_rank(&bc, lane);
+    for (int i = 0; i < 9; ++i) dst->rot[i] = rot[i];
+    for (int i = 0; i < 3; ++i) dst->trans[i] = pose[4 + i];
+    dst->a = st.a;
+    dst->b = st.b;
+  }
+}
+
+// The leader warp after the final pass: track_plain's tail on the totals
+// (`final_pass_plain` and the lines after it), lane 0 writing lane `b`'s
+// outputs. `div` is the track's diverged flag (every level's OR).
+__device__ void final_tail(const Params& p, const State& st,
+                           const LsdLmFinal& f, int b, bool div, double lo,
+                           double hi, int lane) {
+  const double usage_d = __shfl_sync(kFull, lo, kUsage);
+  const double good_d = __shfl_sync(kFull, lo, kGood);
+  const double bad_d = __shfl_sync(kFull, lo, kBad);
+  const double err_d = __shfl_sync(kFull, lo, kErr);
+  const double cnt_d = __shfl_sync(kFull, hi, 1);
+  if (lane != 0) return;
+  const int cnt = (int)cnt_d;
+  const float n = cnt > 0 ? (float)cnt : 1.0f;
+  const float err = (float)err_d / n;
+  const float good = (float)good_d, bad = (float)bad_d;
+  const float n_valid = f.n_valid[(long long)b * f.n_valid_stride];
+  const float usage = (float)usage_d / clamp_min(n_valid, 1.0f);
+  const bool tracking_good =
+      (good / (float)(p.w * p.h) > p.min_gpa)
+      & (good / clamp_min(good + bad, 1.0f) > p.min_gpgb) & !div;
+  float pose[7], inv[7];
+#pragma unroll
+  for (int i = 0; i < 7; ++i)
+    pose[i] = div ? (i == 0 ? 1.0f : 0.0f) : st.pose[i];
+  se3_inverse(pose, inv);
+  float* pk = f.pack + (long long)b * kPack;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    pk[i] = pose[i];
+    pk[7 + i] = inv[i];
+  }
+  pk[14] = div ? 1.0f : 0.0f;
+  pk[15] = tracking_good ? 1.0f : 0.0f;
+  pk[16] = err;
+  pk[17] = usage;
+  pk[18] = good;
+  pk[19] = bad;
+  pk[20] = st.a;
+  pk[21] = st.b;
+  pk[22] = err / clamp_min(usage, 1e-6f);
+  f.tracking_good[b] = tracking_good ? 1 : 0;
+  long long* c = f.counts + (long long)b * 3;
+  c[0] = cnt;
+  c[1] = (long long)good_d;
+  c[2] = (long long)bad_d;
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 lm_level_kernel(const int64_t* __restrict__ idx, const float* __restrict__ ival,
                 const float* __restrict__ idp, const float* __restrict__ ivr,
@@ -683,7 +825,9 @@ lm_level_kernel(const int64_t* __restrict__ idx, const float* __restrict__ ival,
                 float* __restrict__ aff_a_out, float* __restrict__ aff_b_out,
                 float* __restrict__ err_out, uint8_t* __restrict__ div_out,
                 int* __restrict__ trials_out, int* __restrict__ its_out,
-                long long* __restrict__ stamps, Params p) {
+                long long* __restrict__ stamps,
+                const uint8_t* __restrict__ div_in, LsdLmFinal fin,
+                Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double cs[kWarps][kCols];
   __shared__ double stk[kStack][kCols];
@@ -700,6 +844,16 @@ lm_level_kernel(const int64_t* __restrict__ idx, const float* __restrict__ ival,
                    quad + (long long)b * p.quad_stride};
   long long* const stamp = (stamps != nullptr && b == 0 && leader
                             && threadIdx.x == 0) ? stamps : nullptr;
+  uint8_t* const grid = fin.good_mask == nullptr ? nullptr
+                        : fin.good_mask + (long long)b * p.w * p.h;
+  if (grid != nullptr) {
+    // every pixel good until the final pass writes the points' flags;
+    // the loop's cluster barriers order these stores before those
+    const int hw = p.w * p.h;
+    for (int j = rank * kThreads + threadIdx.x; j < hw; j += C * kThreads)
+      grid[j] = 1;
+    __threadfence();
+  }
 
   // stage the block's share of the points
   const long long share = (long long)(p.leaves / C) * p.chunk;
@@ -723,12 +877,17 @@ lm_level_kernel(const int64_t* __restrict__ idx, const float* __restrict__ ival,
   }
   const Staged sm = {s_idx, s_ival, s_idp, s_ivr, s_valid, first, n_st};
   if (threadIdx.x == 0) {
-    float pose[7];
-    for (int i = 0; i < 7; ++i) pose[i] = pose_in[b * 7 + i];
+    float given[7], pose[7];
+    for (int i = 0; i < 7; ++i) given[i] = pose_in[b * 7 + i];
+    if (p.invert) {
+      se3_inverse(given, pose);
+    } else {
+      for (int i = 0; i < 7; ++i) pose[i] = given[i];
+    }
     quat_to_matrix(pose, bc.rot);
     for (int i = 0; i < 3; ++i) bc.trans[i] = pose[4 + i];
-    bc.a = aff_a_in[b];
-    bc.b = aff_b_in[b];
+    bc.a = aff_a_in != nullptr ? aff_a_in[b] : 1.0f;
+    bc.b = aff_b_in != nullptr ? aff_b_in[b] : 0.0f;
     bc.cont = 1;
     if (leader) {
       for (int i = 0; i < 7; ++i) st.pose[i] = pose[i];
@@ -739,8 +898,8 @@ lm_level_kernel(const int64_t* __restrict__ idx, const float* __restrict__ ival,
   __syncthreads();
 
   for (int q = 0;; ++q) {
-    block_pass(p, ln, sm, bc, rank, C, tiles, cs, stk,
-               stamp ? stamp + 3 * q : nullptr);
+    block_pass<false>(p, ln, sm, bc, rank, C, tiles, cs, stk,
+                      stamp ? stamp + 3 * q : nullptr, nullptr);
     cluster.sync();  // every block's root is written
     if (leader && warp == 0) {
       double lo, hi;
@@ -763,16 +922,30 @@ lm_level_kernel(const int64_t* __restrict__ idx, const float* __restrict__ ival,
     if (!bc.cont) break;
   }
 
-  if (stamp) stamp[3 * (p.max_trials + 1)] = clock64();
+  const bool div = st.diverged || (div_in != nullptr && div_in[b] != 0);
   if (leader && threadIdx.x == 0) {
     for (int i = 0; i < 7; ++i) pose_out[b * 7 + i] = st.pose[i];
     aff_a_out[b] = st.a;
     aff_b_out[b] = st.b;
     err_out[b] = st.last_err;
-    div_out[b] = st.diverged ? 1 : 0;
+    div_out[b] = div ? 1 : 0;
     trials_out[b] = st.trials;
     its_out[b] = st.iter;
   }
+  if (grid != nullptr) {
+    // the final pass at the pose and affine pair just written
+    if (leader && warp == 0) final_bcast(cluster, C, st, bc, lane);
+    cluster.sync();
+    block_pass<true>(p, ln, sm, bc, rank, C, tiles, cs, stk, nullptr, grid);
+    cluster.sync();  // every block's root is written
+    if (leader && warp == 0) {
+      double lo, hi;
+      cluster_fold(cluster, C, stk, lane, lo, hi);
+      final_tail(p, st, fin, b, div, lo, hi, lane);
+    }
+    cluster.sync();  // the leader has read every block's root
+  }
+  if (stamp) stamp[3 * (p.max_trials + 1)] = clock64();
 }
 
 // The kernel's attributes, once per device and size: clusters of 16
@@ -831,7 +1004,9 @@ extern "C" int lsd_lm_max_cluster(int smem) {
 }
 
 // B lanes, a cluster of `cluster` blocks each, `smem` bytes of dynamic
-// shared memory a block; returns the launch's cudaError_t.
+// shared memory a block; `aff_a_in` / `aff_b_in` null: the pair starts at
+// (1, 0); `div_in` null or B flags to OR into `div_out`; `fin` null or the
+// final pass's outputs. Returns the launch's cudaError_t.
 extern "C" int lsd_lm_level(const int64_t* idx, const float* ival,
                             const float* idp, const float* ivr,
                             const uint8_t* valid, const float* quad,
@@ -841,16 +1016,19 @@ extern "C" int lsd_lm_level(const int64_t* idx, const float* ival,
                             float* err_out, uint8_t* div_out, int* trials_out,
                             int* its_out, long long* stamps, int lanes,
                             int cluster, int smem, const LsdLmParams* params,
-                            void* stream) {
+                            void* stream, const uint8_t* div_in,
+                            const LsdLmFinal* fin) {
   cudaError_t rc = prepare(smem);
   if (rc != cudaSuccess) return (int)rc;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       cluster_config(lanes, cluster, smem, (cudaStream_t)stream, &attr);
+  LsdLmFinal none = {};
   rc = cudaLaunchKernelEx(&cfg, lm_level_kernel, idx, ival, idp, ivr, valid,
                           quad, pose_in, aff_a_in, aff_b_in, pose_out,
                           aff_a_out, aff_b_out, err_out, div_out, trials_out,
-                          its_out, stamps, *params);
+                          its_out, stamps, div_in,
+                          fin != nullptr ? *fin : none, *params);
   if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }

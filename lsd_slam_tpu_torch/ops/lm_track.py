@@ -30,12 +30,16 @@ each size the card holds at once (`sim3_active_clusters`), and
 
 The wrapper takes tensors and scalars only (the point fields, the
 schedule's constants as a mapping) and returns tensors; `tracking.lm`
-builds its `LevelResult` from them, so this layer knows nothing of the
-trackers.
+builds its `LevelResult` from them. What `lm_level` takes for the SE(3)
+track alone (`invert`, a None affine pair, `diverged`, `final_n_valid`:
+the track's start, its diverged OR and its final pass, see csrc/lm_track.cu)
+is written in terms of the launch; the final pass's pack is the one
+layout this layer shares with a tracker (se3_tracker.HOST_PACK's order).
 
-`LAUNCHES` counts `lm_level` launches and `CLUSTER_SIZES` the launches
-by C, `SIM3_LAUNCHES` and `SIM3_CLUSTER_SIZES` those of `sim3_level`; the
-engine's worker threads launch too, so all are bumped under a lock.
+`LAUNCHES` counts `lm_level` launches, `FINAL_LAUNCHES` those that ran
+the final pass and `CLUSTER_SIZES` the launches by C, `SIM3_LAUNCHES` and
+`SIM3_CLUSTER_SIZES` those of `sim3_level`; the engine's worker threads
+launch too, so all are bumped under a lock.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from lsd_slam_tpu_torch.config import TrackerConfig
 # number of kernel launches (reset it to count a run), and of launches by
 # cluster size (clear it with LAUNCHES)
 LAUNCHES = 0
+FINAL_LAUNCHES = 0
 CLUSTER_SIZES = collections.Counter()
 SIM3_LAUNCHES = 0
 SIM3_CLUSTER_SIZES = collections.Counter()
@@ -86,6 +91,13 @@ SIM3_STAGE_CAP = SIM3_STAGE_BYTES // SIM3_STAGE_POINT_BYTES
 # the per-lane values a final pass returns: the coupled, depth and
 # photometric mean residuals, the usage sum and A (7 x 7)
 SIM3_FINAL = 4 + 49
+# what `lm_level`'s final pass writes per lane: the pack (FINAL_PACK
+# entries in the order of tracking/se3_tracker.py HOST_PACK, the SE(3)
+# track's host pack), the good-pixel grid, tracking_good and the in-image,
+# good and bad counts
+FINAL_PACK = 23
+FinalPass = collections.namedtuple(
+    "FinalPass", "pack good_mask tracking_good counts")
 
 
 class Params(ctypes.Structure):
@@ -106,8 +118,18 @@ class Params(ctypes.Structure):
         ("max_its", ctypes.c_int), ("max_trials", ctypes.c_int),
         ("quick", ctypes.c_int), ("use_affine", ctypes.c_int),
         ("chunk", ctypes.c_int), ("leaves", ctypes.c_int),
-        ("staged", ctypes.c_int),
+        ("staged", ctypes.c_int), ("invert", ctypes.c_int),
+        ("max_diff_const", ctypes.c_float), ("max_diff_grad", ctypes.c_float),
+        ("min_gpa", ctypes.c_float), ("min_gpgb", ctypes.c_float),
     ]
+
+
+class Final(ctypes.Structure):
+    """The final pass's outputs (`LsdLmFinal` in csrc/lm_track.cu)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "good_mask", "pack", "tracking_good", "counts", "n_valid")] + [
+        ("n_valid_stride", ctypes.c_longlong)]
 
 
 def _f32(x) -> float:
@@ -195,12 +217,13 @@ def max_cluster(device: torch.device, sim3: bool = False) -> int:
 
 def make_params(cam: Camera, cfg: TrackerConfig, sigma2: float,
                 schedule: Mapping, n_points: int, quad_rows: int,
-                pts_stride: int, quad_stride: int, cluster: int = 1
-                ) -> Params:
+                pts_stride: int, quad_stride: int, cluster: int = 1,
+                invert: bool = False) -> Params:
     """The constants of one launch; each float is the f32 the plain
     version's torch op uses for the same Python constant. `schedule` holds
     the loop's constants (the fields of tracking/lm.py `Schedule`);
-    `cluster` the blocks per lane."""
+    `cluster` the blocks per lane; `invert` starts at the pose's
+    inverse."""
     h, w = cam.height, cam.width
     chunk, leaves, staged, _ = launch_layout(n_points, cluster)
     sched = {k: schedule[k] for k in (
@@ -218,11 +241,17 @@ def make_params(cam: Camera, cfg: TrackerConfig, sigma2: float,
         fail_fac=_f32(sched["fail_fac"]), max_its=int(sched["max_its"]),
         max_trials=int(sched["max_trials"]), quick=int(sched["quick"]),
         use_affine=int(sched["use_affine"]), chunk=chunk, leaves=leaves,
-        staged=staged)
+        staged=staged, invert=int(bool(invert)),
+        max_diff_const=_f32(cfg.max_diff_constant),
+        max_diff_grad=_f32(cfg.max_diff_grad_mult),
+        min_gpa=_f32(cfg.min_goodperall_pixel),
+        min_gpgb=_f32(cfg.min_goodpergoodbad_pixel))
 
 
+# lsd_lm_level's arguments: 17 pointers, lanes, cluster, smem, the params,
+# the stream, div_in and the final pass's outputs
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [
-    ctypes.c_void_p, ctypes.c_void_p]
+    ctypes.c_void_p] * 4
 
 
 def _library(name: str = "lm_track"):
@@ -266,29 +295,44 @@ _POINT_DTYPES = (torch.int64, torch.float32, torch.float32, torch.float32,
 def lm_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor], frame_quad,
              cam: Camera, cfg: TrackerConfig, sigma2: float,
              schedule: Mapping, stamps: torch.Tensor = None,
-             cluster: int = None):
+             cluster: int = None, invert: bool = False,
+             diverged: torch.Tensor = None,
+             final_n_valid: torch.Tensor = None):
     """One launch of the level loop for the lanes of `pose` ((7,) or
     (B, 7) f32 on a CUDA device). The affine pair is a tensor of the
-    pose's lane shape or a Python float; `points` the point fields
+    pose's lane shape, a Python float, or None for both (the pair starts
+    at (1, 0) and no fill is launched); `points` the point fields
     (POINT_FIELDS), each (N,) shared or (B, N); the quad layout (H*W, 12)
     shared or (B, H*W, 12); `schedule` the loop's constants (see
     `make_params`). Returns (pose, aff_a, aff_b, last_err, diverged,
-    trials, its), tensors of the pose's lane shape. `stamps`, for
-    measurement only (the engine never passes it), is an int64 CUDA
-    tensor of at least `stamp_slots(schedule)` entries: the first lane's
-    leader thread writes `clock64()` there at the start, the end of its
-    sweep and the end of the fold of every pass (3 slots a pass, pass 0
-    first), and at the loop's end in the last slot. `cluster` forces the
-    blocks per lane (a power of two up to the card's `max_cluster`), for
-    measurement only; by default `choose_cluster` picks it."""
-    global LAUNCHES
+    trials, its), tensors of the pose's lane shape.
+
+    For the SE(3) track: `invert` starts the loop at the inverse of
+    `pose` (the track's frame_to_ref); `diverged` (bool, the lane shape)
+    is OR-ed into the returned flags; `final_n_valid` (the point set's
+    f32 valid count, () or (B,)) runs the final pass after the loop and
+    appends a `FinalPass` to the result: the pack (lane shape + (23,),
+    se3_tracker.HOST_PACK's order), the good-pixel grid (bool, lane shape
+    + (h, w)), tracking_good (bool) and the in-image, good and bad counts
+    (int64, lane shape + (3,)).
+
+    `stamps`, for measurement only (the engine never passes it), is an
+    int64 CUDA tensor of at least `stamp_slots(schedule)` entries: the
+    first lane's leader thread writes `clock64()` there at the start, the
+    end of its sweep and the end of the fold of every pass (3 slots a
+    pass, pass 0 first), and at the launch's end in the last slot.
+    `cluster` forces the blocks per lane (a power of two up to the card's
+    `max_cluster`), for measurement only; by default `choose_cluster`
+    picks it."""
+    global LAUNCHES, FINAL_LAUNCHES
     dev = pose.device
     if dev.type != "cuda":
         raise ValueError(f"lm_level: unsupported device {dev}")
     if dev.index is not None and dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return lm_level(pose, aff_a, aff_b, points, frame_quad, cam, cfg,
-                            sigma2, schedule, stamps, cluster)
+                            sigma2, schedule, stamps, cluster, invert,
+                            diverged, final_n_valid)
     if pose.dtype != torch.float32 or pose.shape[-1] != 7 or pose.dim() > 2:
         raise ValueError(f"lm_level: pose must be f32 (7,) or (B, 7), got "
                          f"{pose.dtype} {tuple(pose.shape)}")
@@ -301,7 +345,10 @@ def lm_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor], frame_quad,
             return x.to(torch.float32).reshape(-1).expand(lanes).contiguous()
         return torch.full((lanes,), float(x), dtype=torch.float32, device=dev)
 
-    a_in, b_in = lane_values(aff_a), lane_values(aff_b)
+    if (aff_a is None) != (aff_b is None):
+        raise ValueError("lm_level: give both of the affine pair or neither")
+    a_in, b_in = ((None, None) if aff_a is None
+                  else (lane_values(aff_a), lane_values(aff_b)))
     if len(points) != len(POINT_FIELDS):
         raise ValueError(f"lm_level: {len(points)} point fields, expected "
                          f"{POINT_FIELDS}")
@@ -325,8 +372,19 @@ def lm_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor], frame_quad,
     quad_rows = quad.shape[-2]
     if quad_rows * 12 >= 2 ** 31 or cam.width * cam.height >= 2 ** 31:
         raise ValueError("lm_level: image too large for 32-bit indices")
-    for t in fields + [quad, a_in, b_in]:
-        if t.device != dev:
+    div_in = None
+    if diverged is not None:
+        if diverged.dtype != torch.bool or diverged.numel() != lanes:
+            raise ValueError(f"lm_level: diverged must be bool of {lanes} "
+                             f"lanes, got {diverged.dtype} "
+                             f"{tuple(diverged.shape)}")
+        div_in = diverged.reshape(-1).contiguous()
+    nv = nv_stride = None
+    if final_n_valid is not None:
+        nv, nv_stride = _lanes_of("n_valid", final_n_valid, lanes,
+                                  torch.float32, 0)
+    for t in fields + [quad, a_in, b_in, div_in, nv]:
+        if t is not None and t.device != dev:
             raise ValueError(f"lm_level: a tensor on {t.device}, pose on "
                              f"{dev}")
 
@@ -340,7 +398,7 @@ def lm_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor], frame_quad,
         raise ValueError(f"lm_level: cluster {cluster} is not a power of two "
                          f"up to {most}")
     prm = make_params(cam, cfg, sigma2, schedule, n_points, quad_rows,
-                      pstride, qstride, cluster)
+                      pstride, qstride, cluster, invert)
     smem = launch_layout(n_points, cluster)[3]
     out_pose = torch.empty_like(pose2)
     out_a = torch.empty(lanes, dtype=torch.float32, device=dev)
@@ -349,6 +407,19 @@ def lm_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor], frame_quad,
     out_div = torch.empty(lanes, dtype=torch.bool, device=dev)
     out_trials = torch.empty(lanes, dtype=torch.int32, device=dev)
     out_its = torch.empty_like(out_trials)
+    fin = fin_ptr = None
+    if nv is not None:
+        fin = FinalPass(
+            torch.empty(lanes, FINAL_PACK, dtype=torch.float32, device=dev),
+            torch.empty(lanes, cam.height * cam.width, dtype=torch.bool,
+                        device=dev),
+            torch.empty(lanes, dtype=torch.bool, device=dev),
+            torch.empty(lanes, 3, dtype=torch.int64, device=dev))
+        fin_ptr = ctypes.byref(Final(
+            good_mask=fin.good_mask.data_ptr(), pack=fin.pack.data_ptr(),
+            tracking_good=fin.tracking_good.data_ptr(),
+            counts=fin.counts.data_ptr(), n_valid=nv.data_ptr(),
+            n_valid_stride=nv_stride))
     stamp_ptr = 0
     if stamps is not None:
         if (stamps.device != dev or stamps.dtype != torch.int64
@@ -358,21 +429,33 @@ def lm_level(pose, aff_a, aff_b, points: Sequence[torch.Tensor], frame_quad,
                              f"tensor on {dev} of {stamp_slots(schedule)} "
                              "entries or more")
         stamp_ptr = stamps.data_ptr()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     rc = _entry()(*(t.data_ptr() for t in fields), quad.data_ptr(),
-                  pose2.data_ptr(), a_in.data_ptr(), b_in.data_ptr(),
+                  pose2.data_ptr(), ptr(a_in), ptr(b_in),
                   out_pose.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
                   out_err.data_ptr(), out_div.data_ptr(),
                   out_trials.data_ptr(), out_its.data_ptr(), stamp_ptr, lanes,
                   cluster, smem, ctypes.byref(prm),
-                  torch.cuda.current_stream().cuda_stream)
+                  torch.cuda.current_stream().cuda_stream, ptr(div_in),
+                  fin_ptr)
     if rc != 0:
         raise RuntimeError(f"lm_level kernel launch failed: cudaError {rc}")
     with _COUNT_LOCK:
         LAUNCHES += 1
+        FINAL_LAUNCHES += fin is not None
         CLUSTER_SIZES[cluster] += 1
-    return (out_pose.reshape(pose.shape), out_a.reshape(lead),
-            out_b.reshape(lead), out_err.reshape(lead), out_div.reshape(lead),
-            out_trials.reshape(lead), out_its.reshape(lead))
+    out = (out_pose.reshape(pose.shape), out_a.reshape(lead),
+           out_b.reshape(lead), out_err.reshape(lead), out_div.reshape(lead),
+           out_trials.reshape(lead), out_its.reshape(lead))
+    if fin is None:
+        return out
+    h, w = cam.height, cam.width
+    return out + (FinalPass(fin.pack.reshape(lead + (FINAL_PACK,)),
+                            fin.good_mask.reshape(lead + (h, w)),
+                            fin.tracking_good.reshape(lead),
+                            fin.counts.reshape(lead + (3,))),)
 
 
 class Sim3Set(ctypes.Structure):

@@ -504,6 +504,9 @@ class SlamSystem:
         point_usage = float(host[HP["point_usage"]])
 
         self.stats.bump("frames_tracked")
+        # tracks whose final pass ran inside `lm_level` (bumped by 0 on the
+        # CPU, so a run that tracked has the key)
+        self.stats.bump("track_final_fused", int(fl.res.final_fused))
         self.tracking_last_residual = float(host[HP["last_residual"]])
         self.tracking_last_usage = point_usage
 

@@ -25,6 +25,14 @@ The kernel relies on this: its lanes never wait on one another.
 The plain version takes any leading lane shape: a pose (7,) with 0-d
 affine values is the single SE(3) track, (B, 7) a batch. The affine pair
 may be Python floats (the quick tracker's fixed (1, 0)).
+
+For the SE(3) track on the card, `level` also takes what the kernel does
+around the loop (se3_tracker.track_fused): `invert` (start at the inverse
+of the pose given, the track's frame_to_ref), a None affine pair (start
+at (1, 0)), `diverged` (the previous levels' flags, OR-ed into the
+result) and `final` (the track's final pass after the loop, in
+`LevelResult.final`, an ops.lm_track `FinalPass`). The plain loop takes
+none of them: on the CPU se3_tracker.track_plain does these in torch ops.
 """
 
 from __future__ import annotations
@@ -92,6 +100,7 @@ class LevelResult:
     trials: torch.Tensor      # (...) int32 trials run
     its: torch.Tensor         # (...) int32 trials accepted
     n_syncs: int = 0          # host checks the loop made (0 on the card)
+    final: object = None      # the launch's final pass (ops.lm_track)
 
 
 def level_plain(pose, aff_a, aff_b, pts: PointSet, frame_quad,
@@ -174,19 +183,28 @@ def level_plain(pose, aff_a, aff_b, pts: PointSet, frame_quad,
 
 
 def level(pose, aff_a, aff_b, pts: PointSet, frame_quad, cam: Camera,
-          cfg: TrackerConfig, sigma2: float, sched: Schedule) -> LevelResult:
+          cfg: TrackerConfig, sigma2: float, sched: Schedule,
+          invert: bool = False, diverged=None,
+          final: bool = False) -> LevelResult:
     """One level's LM loop: the kernel `lm_level` for CUDA tensors, the
-    plain version for CPU ones (anything else raises)."""
+    plain version for CPU ones (anything else raises). `invert`, a None
+    affine pair, `diverged` and `final` are the kernel's (see above)."""
     if pose.device.type == "cpu":
+        if invert or aff_a is None or diverged is not None or final:
+            raise ValueError("lm.level: invert, a None affine pair, "
+                             "diverged and final are the kernel's; on the "
+                             "CPU se3_tracker.track_plain does them")
         return level_plain(pose, aff_a, aff_b, pts, frame_quad, cam, cfg,
                            sigma2, sched)
     from lsd_slam_tpu_torch.ops import lm_track
     out = lm_track.lm_level(
         pose, aff_a, aff_b,
         tuple(getattr(pts, f) for f in lm_track.POINT_FIELDS), frame_quad,
-        cam, cfg, sigma2, asdict(sched))
-    pose, a, b, err, div, trials, its = out
+        cam, cfg, sigma2, asdict(sched), invert=invert, diverged=diverged,
+        final_n_valid=pts.n_valid if final else None)
+    pose, a, b, err, div, trials, its = out[:7]
     # a Python float given for the affine pair comes back as given
-    return LevelResult(pose, a if torch.is_tensor(aff_a) else aff_a,
-                       b if torch.is_tensor(aff_b) else aff_b, err, div,
-                       trials, its, n_syncs=0)
+    given = aff_a is not None and not torch.is_tensor(aff_a)
+    return LevelResult(pose, aff_a if given else a, aff_b if given else b,
+                       err, div, trials, its, n_syncs=0,
+                       final=out[7] if final else None)

@@ -78,13 +78,22 @@ def compact_points(valid: torch.Tensor, fields: torch.Tensor,
                    budget: int) -> Tuple[torch.Tensor, ...]:
     """Compact flat `fields` (M, C) rows where `valid` (H, W) into a
     (budget, C) buffer. Returns (idx, vals, slot_valid, n_valid)."""
+    idx, slot_valid, n_valid = compact_slots(valid, budget)
+    return (idx, fields if budget >= fields.shape[0] else fields[idx],
+            slot_valid, n_valid)
+
+
+def compact_slots(valid: torch.Tensor,
+                  budget: int) -> Tuple[torch.Tensor, ...]:
+    """`compact_points` without the fields: (idx, slot_valid, n_valid),
+    the flat index each of the `budget` slots reads."""
     h, w = valid.shape
     m = h * w
     dev = valid.device
     vflat = valid.reshape(-1)
     if budget >= m:
         slot = torch.arange(m, dtype=torch.int64, device=dev)
-        return slot, fields, vflat, torch.sum(vflat.to(torch.float32))
+        return slot, vflat, torch.sum(vflat.to(torch.float32))
     perm = torch.as_tensor(_golden_perm(m), device=dev).to(torch.int64)
     vp = vflat[perm]
     pos = torch.cumsum(vp.to(torch.int64), 0) - 1
@@ -96,8 +105,7 @@ def compact_points(valid: torch.Tensor, fields: torch.Tensor,
     idx = buf[:budget]
     n_valid = torch.clamp(torch.sum(vp.to(torch.int64)), max=budget)
     slot_valid = torch.arange(budget, device=dev) < n_valid
-    vals = fields[idx]
-    return idx, vals, slot_valid, n_valid.to(torch.float32)
+    return idx, slot_valid, n_valid.to(torch.float32)
 
 
 def make_tracking_ref(pyr: FramePyramid, depth: DepthPyramid,
@@ -120,14 +128,17 @@ def make_tracking_ref(pyr: FramePyramid, depth: DepthPyramid,
         interior = torch.zeros_like(iv, dtype=torch.bool)
         interior[1:-1, 1:-1] = True
         valid = (iv > 0) & (idp != 0) & interior
-        fields = torch.stack(
-            [img, pyr.gx[lvl], pyr.gy[lvl], idp, iv], dim=-1).reshape(-1, 5)
+        # one plane a field, so each field of the point set is contiguous
+        # and the LM kernel reads it as given (no copy a launch)
+        planes = torch.stack(
+            [img, pyr.gx[lvl], pyr.gy[lvl], idp, iv]).reshape(5, -1)
         budget = level_budget(h, w, lvl, budget_frac)
-        idx, vals, slot_valid, n_valid = compact_points(valid, fields, budget)
+        idx, slot_valid, n_valid = compact_slots(valid, budget)
+        vals = planes if budget >= h * w else torch.index_select(
+            planes, 1, idx)
         pts.append(PointSet(
-            idx=idx, ival=vals[:, 0], gx=vals[:, 1], gy=vals[:, 2],
-            idp=vals[:, 3], ivr=vals[:, 4], valid=slot_valid,
-            n_valid=n_valid))
+            idx=idx, ival=vals[0], gx=vals[1], gy=vals[2], idp=vals[3],
+            ivr=vals[4], valid=slot_valid, n_valid=n_valid))
         squads.append(_sim3_quad(pyr, depth, lvl) if with_sim3 else None)
     return TrackingRef(pts=tuple(pts), sim3_quad=tuple(squads))
 
